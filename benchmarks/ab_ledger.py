@@ -11,9 +11,9 @@ collective arm, "overlap" = the ppermute-ring p2p arm done right) over a
 FORCED P-device CPU mesh on one host.
 
 These numbers are FUNCTIONAL (CPU-mesh) — they validate the machinery and
-mirror the reference's methodology, not TPU silicon: XLA's CPU collectives
-are shared-memory copies, so inter-arm deltas reflect schedule/overhead, not
-ICI. On-chip A/B timing needs a multi-chip slice (RESULTS.md caveat).
+mirror the reference's methodology, not a device: XLA's CPU collectives are
+shared-memory copies, so inter-arm deltas reflect schedule/overhead, not the
+interconnect. Device A/B timing needs several GPUs.
 
 Usage: python benchmarks/ab_ledger.py [--sizes ...] [--out RESULTS.md]
 Writes/updates the "Distributed A/B ledger" section of RESULTS.md and
@@ -90,7 +90,7 @@ def main():
     import tpucg
     from tpucg.bench.timing import time_fn
     from tpucg.io.partitioner import RowPartition
-    from tpucg.solver.sharded import distribute_system, row_align
+    from tpucg.solver.sharded import distribute_system, ROW_ALIGN
 
     assert len(jax.devices()) >= max(procs), "need the forced CPU mesh"
     results = {}
@@ -111,7 +111,7 @@ def main():
         print(f"n={n} serial: {serial_s:.4f} s", flush=True)
         for P in procs:
             mesh = tpucg.make_mesh(P)
-            part = RowPartition(n=n, num_shards=P, align=row_align("xla"))
+            part = RowPartition(n=n, num_shards=P, align=ROW_ALIGN)
             for strategy in ("allgather", "overlap"):
                 t_clock = time.perf_counter()
                 t0 = time.perf_counter()
@@ -143,7 +143,7 @@ def main():
                 )
 
     # ---- reduction-cadence arms (method A/B at the largest P) ----
-    # The TPU-first extension of the same thesis: the reference's two arms
+    # The extension of the same thesis: the reference's two arms
     # differ in HOW each lap's 3 blocking reductions travel; these three
     # differ in HOW OFTEN any reduction happens at all (2-3/lap, 1/lap
     # fused, 1 per s laps + verification, ZERO per lap / 1 per check chunk).
@@ -152,7 +152,7 @@ def main():
     method_results = {}
     for n in sizes:
         A, b, x0 = tpucg.generate_spd_system(n, seed=0)
-        part = RowPartition(n=n, num_shards=P_m, align=row_align("xla"))
+        part = RowPartition(n=n, num_shards=P_m, align=ROW_ALIGN)
         Ad, bd, x0d = distribute_system(
             A.astype(np.float32), b.astype(np.float32),
             x0.astype(np.float32), mesh_m, part,
@@ -230,7 +230,7 @@ def main():
         "methodology (report §6: `mpiexec -np P` on one Xeon). "
         "**Functional/CPU numbers**: they exercise the real shard_map/"
         "collective code paths but CPU-mesh collectives are shared-memory "
-        "copies — on-chip A/B timing needs a multi-chip TPU slice. "
+        "copies — device A/B timing needs several GPUs. "
         "Reference columns from results.xlsx sheet2 for structure parity.",
         "",
         "| n | P | tpucg allgather data/CG (s) | tpucg overlap data/CG (s) |"

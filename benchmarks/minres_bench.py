@@ -1,17 +1,16 @@
 #!/usr/bin/env python
 """MINRES benchmark (symmetric INDEFINITE systems) -> RESULTS.md section.
 
-Run ON TPU. The reference (and CG) requires SPD (`serialConjugate.c:219-220`
+Run on the GPU. The reference (and CG) requires SPD (`serialConjugate.c:219-220`
 NaNs on an indefinite quadratic form); `tpucg.minres_solve` is the
 guaranteed path for merely-symmetric systems. Workloads:
 
 - dense indefinite (half the spectrum negative), plain and — on a badly
   diagonally scaled variant — jacobi (M = 1/|d|) preconditioned;
 - the same class in its natural sparse home: an indefinite BANDED system
-  (shifted Laplacian, the Helmholtz structure) in DIA form through the
-  fused Pallas band kernel.
+  (shifted Laplacian, the Helmholtz structure) in DIA form.
 
-Timing per CLAUDE.md: K chained data-dependent solves in one dispatch,
+Timing: K chained data-dependent solves in one dispatch,
 differenced; median of >= 3 independent chains with min-max published.
 Appends/replaces a "## MINRES (symmetric indefinite, extension)" section.
 """
@@ -71,9 +70,8 @@ def bench(repeats):
     import numpy as np
 
     import tpucg
-    from tpucg.bench.timing import time_run_chain
+    from tpucg.bench.timing import hbm_peak_bytes_per_s, time_run_chain
     from tpucg.kernels.blas1 import dot_xla
-    from tpucg.kernels.dispatch import resolve_backend
     from tpucg.solver.minres import minres_loop
     from tpucg.solver.operators import DiaOperator, as_operator
 
@@ -97,10 +95,9 @@ def bench(repeats):
         p = getattr(op, "padded_n", b.shape[0])
         if bytes_per_mv is None:
             bytes_per_mv = 4.0 * p * p  # dense GEMV streams A once per lap
-        # Per-solve estimate sizes the chain (khi ~ 0.05 s of chained work);
-        # an under-estimate here once produced a 256-solve chain that the
-        # TPU worker's watchdog killed — keep it roofline-honest.
-        est = max(iters, 1) * bytes_per_mv / 819e9
+        # Per-solve estimate sizes the chain (khi ~ 0.05 s of chained
+        # work): the streamed bytes at the card's published peak.
+        est = max(iters, 1) * bytes_per_mv / hbm_peak_bytes_per_s()
         ss = sorted(
             time_run_chain(run, (op, minv), b, x0, iters=repeats,
                            est_solve_s=max(est, 1e-4))
@@ -125,16 +122,14 @@ def bench(repeats):
     res = tpucg.minres_solve(A, b, tol=tol, maxiter=4 * n)
     assert bool(res.converged)
     rr = float(np.linalg.norm(b - A @ np.asarray(res.x)))
-    op = as_operator(jnp.asarray(A), backend=resolve_backend("auto"))
+    op = as_operator(jnp.asarray(A))
     bp = jnp.asarray(np.pad(b, (0, op.padded_n - n)) if op.padded_n != n
                      else b)
     time_arm("dense indefinite (half spectrum < 0)", op, bp, tol,
              2 * int(res.iterations) + 64, None, int(res.iterations), rr)
 
     # Badly scaled dense indefinite: jacobi (1/|d|) vs plain laps. The
-    # timed chain's maxiter is clamped to ~2x the measured lap count — a
-    # chained program of 16n-lap while_loops crashed the TPU worker
-    # (watchdog) twice before this clamp.
+    # timed chain's maxiter is clamped to ~2x the measured lap count.
     As = _dense_indefinite(n, 2, scale=True)
     bs_ = rng.standard_normal(n).astype(np.float32)
     tols = 1e-3 * float(np.linalg.norm(bs_))
@@ -147,14 +142,7 @@ def bench(repeats):
           f"{int(res_pl.iterations)} (conv={bool(res_pl.converged)}), "
           f"jacobi laps={int(res_pc.iterations)}", flush=True)
     rr_pc = float(np.linalg.norm(bs_ - As @ np.asarray(res_pc.x)))
-    # backend='xla' is a MEASURED choice for the preconditioned arms: the
-    # Pallas GEMV composed with the elementwise 1/|d| psolve runs 0.292
-    # ms/lap vs XLA's 0.115 (reproducible across rounds — it published an
-    # inverted jacobi-vs-block ranking in round 4 until a fetch-timed
-    # single dispatch exposed it). Identity psolve (which XLA's algebraic
-    # simplifier elides) is fast, so the cliff is the real vector-multiply
-    # fusion feeding the Pallas custom call, not the recurrence variant.
-    ops = as_operator(jnp.asarray(As), backend="xla")
+    ops = as_operator(jnp.asarray(As))
     d = np.abs(np.diag(As)).astype(np.float32)
     minv = jnp.asarray(np.where(d > 0, 1.0 / np.maximum(d, 1e-30), 1.0))
     if ops.padded_n != n:
@@ -190,11 +178,11 @@ def bench(repeats):
         int(res_bj.iterations), rr_bj,
     )
 
-    # Indefinite BANDED system in DIA form — the Pallas interleaved band
-    # kernel under MINRES (the sparse home of indefinite problems).
+    # Indefinite BANDED system in DIA form under MINRES (the sparse home
+    # of indefinite problems).
     n_b = 262144
     dia = _staggered_band_dia(n_b)
-    op_d = DiaOperator.from_dia(dia, backend="pallas")
+    op_d = DiaOperator.from_dia(dia)
     b_d = rng.standard_normal(n_b).astype(np.float32)
     tol_d = 1e-4 * float(np.linalg.norm(b_d))
     res_d = tpucg.minres_solve(op_d, b_d, tol=tol_d, maxiter=4 * n_b)
@@ -203,7 +191,7 @@ def bench(repeats):
     rr_d = float(res_d.residual_norm)
     b_dp = jnp.asarray(np.pad(b_d, (0, op_d.padded_n - n_b))
                        if op_d.padded_n != n_b else b_d)
-    time_arm("staggered-sign band (Dirac-like; DIA, Pallas kernel)", op_d,
+    time_arm("staggered-sign band (Dirac-like; DIA)", op_d,
              b_dp, tol_d, 2 * int(res_d.iterations) + 64, None,
              int(res_d.iterations), rr_d,
              bytes_per_mv=4.0 * op_d.padded_n * (5 + 2))
@@ -233,8 +221,7 @@ def main():
         "1-D sharded / operator-sharded (band-halo DIA, slab Poisson). "
         "Solve times: median of 3 independent chains (min-max); chains "
         "are est-aware-sized (`timing._chain_extra` — big solves chain "
-        "once, shrinking watchdog exposure; verified equivalent to the "
-        "floor-8 chains it replaced). Block-|B|^-1 on the badly scaled "
+        "once). Block-|B|^-1 on the badly scaled "
         "row is an honest "
         "NEGATIVE result for lap count: 3792 laps vs point-jacobi's "
         "2345 (a CPU block-size sweep bs=32/64/128/256/512 gives "
@@ -242,18 +229,7 @@ def main():
         "diagonal blocks of a randomly-rotated indefinite spectrum "
         "carry no absorbable structure beyond the scaling itself, and "
         "the |.| SPD-ization folds block eigenvalues that point |d| "
-        "leaves untouched. Both preconditioned arms run the XLA GEMV "
-        "after a round-4 diagnosis: the jacobi row published 689 ms for "
-        "two rounds because the Pallas GEMV composed with the "
-        "elementwise 1/|d| psolve runs 0.292 ms/lap vs the XLA GEMV's "
-        "0.102-0.115 — chain-length-independent (floor-8 and floor-1 "
-        "chains both measured ~685 ms on the Pallas path) and pinned to "
-        "the real vector-multiply fusion feeding the Pallas custom call "
-        "(an identity psolve, which XLA's simplifier elides, runs at "
-        "full rate; the block-|B|^-1 einsum psolve is also unaffected). "
-        "`minres_solve`'s auto dispatch now prefers the XLA GEMV for "
-        "elementwise-preconditioned dense solves; `kernel='pallas'` "
-        "overrides.",
+        "leaves untouched.",
         "",
         "| system | n | laps | solve ms (min-max) | ms/lap | true ||r|| |",
         "|---|---|---|---|---|---|",

@@ -1,11 +1,10 @@
 """Batched independent-systems solver (cg_solve_batch).
 
 An extension beyond the reference (one system per process run,
-serialConjugate.c:43-73): B systems solve concurrently — one Pallas grid
-step per system on the fused path, a vmapped while_loop (batched MXU GEMM
-per lap) on the XLA path. Per-system convergence must match the serial
-solver lap-for-lap even when systems in the same batch need different
-iteration counts.
+serialConjugate.c:43-73): B systems solve concurrently in one vmapped
+while_loop (one batched GEMM per lap). Per-system convergence must match
+the serial solver lap-for-lap even when systems in the same batch need
+different iteration counts.
 """
 
 import numpy as np
@@ -29,15 +28,14 @@ def _make_batch(nsys, n, seed=0):
     return np.stack(As), np.stack(bs)
 
 
-@pytest.mark.parametrize("kernel", ["pallas", "xla"])
-def test_batch_matches_serial(kernel):
-    nsys, n = 4, 96  # n not 128-aligned: exercises the batched identity pad
+def test_batch_matches_serial():
+    nsys, n = 4, 96  # n not 128-aligned: no padding anywhere
     As, bs = _make_batch(nsys, n)
-    res = tpucg.cg_solve_batch(As, bs, kernel=kernel)
+    res = tpucg.cg_solve_batch(As, bs)
     assert res.x.shape == (nsys, n)
     iters = set()
     for i in range(nsys):
-        ref = tpucg.cg_solve(As[i], bs[i], kernel=kernel, fused="never")
+        ref = tpucg.cg_solve(As[i], bs[i])
         assert bool(res.converged[i])
         assert int(res.iterations[i]) == int(ref.iterations)
         iters.add(int(ref.iterations))
@@ -87,15 +85,19 @@ def test_batch_preconditioned(precondition, kw):
 
 
 def test_batch_x0_and_fused_gate():
+    # A nonzero X0 is honoured per system (same laps and x as the serial
+    # solve from the same guess); kernel="pallas" is refused.
     nsys, n = 2, 128
     As, bs = _make_batch(nsys, n, seed=2)
     x0 = 0.1 * np.ones((nsys, n), np.float32)
-    auto = tpucg.cg_solve_batch(As, bs, x0, kernel="pallas", fused="auto")
-    never = tpucg.cg_solve_batch(As, bs, x0, kernel="pallas", fused="never")
+    with pytest.raises(ValueError, match="pallas"):
+        tpucg.cg_solve_batch(As, bs, x0, kernel="pallas")
+    res = tpucg.cg_solve_batch(As, bs, x0)
     for i in range(nsys):
-        assert int(auto.iterations[i]) == int(never.iterations[i])
+        ref = tpucg.cg_solve(As[i], bs[i], x0[i])
+        assert int(res.iterations[i]) == int(ref.iterations)
         np.testing.assert_allclose(
-            np.asarray(auto.x[i]), np.asarray(never.x[i]),
+            np.asarray(res.x[i]), np.asarray(ref.x),
             rtol=2e-4, atol=1e-5,
         )
 
@@ -112,24 +114,9 @@ def test_batch_input_validation():
         tpucg.cg_solve_batch(As, bs, method="pipelined")
 
 
-def test_batch_kernel_rejects_oversize():
-    from tpucg.kernels.fused import (
-        FUSED_BATCH_MAX_N,
-        fused_batch_cg_solve_pallas,
-    )
-
-    n = FUSED_BATCH_MAX_N + 128
-    with pytest.raises(ValueError, match="batched fused"):
-        fused_batch_cg_solve_pallas(
-            jnp.zeros((1, n, n)), jnp.zeros((1, n)), jnp.zeros((1, n)),
-            tol=1e-6, maxiter=4,
-        )
-
-
 def test_batch_jacobi_rides_the_grid_kernel():
-    # precondition='jacobi' on a small f32 batch must route through the
-    # fused grid kernel (in-kernel PCG, per-system 1/diag operand) and
-    # match the per-system lap-path PCG exactly.
+    # precondition='jacobi' on a badly scaled f32 batch: per-system 1/diag
+    # inside the vmapped loop matches the per-system serial PCG.
     nsys, n = 4, 96
     rng = np.random.default_rng(0)
     As, bs = [], []
@@ -141,13 +128,12 @@ def test_batch_jacobi_rides_the_grid_kernel():
         bs.append(rng.standard_normal(n).astype(np.float32))
     As, bs = np.stack(As), np.stack(bs)
     tol = 1e-5 * float(np.linalg.norm(bs[0]))
-    res = tpucg.cg_solve_batch(As, bs, kernel="pallas",
-                               precondition="jacobi", tol=tol,
+    res = tpucg.cg_solve_batch(As, bs, precondition="jacobi", tol=tol,
                                maxiter=4 * n)
     assert bool(np.all(np.asarray(res.converged)))
     for i in range(nsys):
         ref = tpucg.cg_solve(As[i], bs[i], precondition="jacobi", tol=tol,
-                             maxiter=4 * n, fused="never")
+                             maxiter=4 * n)
         assert bool(ref.converged)
         assert abs(int(np.asarray(res.iterations)[i])
                    - int(ref.iterations)) <= 2
@@ -155,15 +141,13 @@ def test_batch_jacobi_rides_the_grid_kernel():
             np.asarray(res.x)[i], np.asarray(ref.x), rtol=2e-3, atol=2e-4
         )
         # Preconditioning must genuinely cut laps on the scaled systems.
-        plain = tpucg.cg_solve(As[i], bs[i], tol=tol, maxiter=4 * n,
-                               fused="never")
+        plain = tpucg.cg_solve(As[i], bs[i], tol=tol, maxiter=4 * n)
         assert int(np.asarray(res.iterations)[i]) < int(plain.iterations)
 
 
 class TestBatchBanded:
     """Batched banded (DIA) systems — the serving shape of implicit PDE
-    time stepping (cg_solve_batch_banded; one Pallas launch per batch on
-    chip, vmapped while_loop off-TPU)."""
+    time stepping (cg_solve_batch_banded; one vmapped while_loop)."""
 
     @staticmethod
     def _battery(nsys=6, n=500, seed=0):
@@ -215,25 +199,22 @@ class TestBatchBanded:
                                           storage_dtype=jnp.bfloat16)
         assert np.asarray(r16.converged).all()
 
-    def test_pallas_kernel_interpret_parity(self):
-        # Drive the fused batched DIA kernel itself (interpret mode on
-        # CPU) against the XLA fallback.
-        import jax.numpy as jnp
-
+    def test_jacobi_parity_with_per_system_solves(self):
+        # Each system of a Jacobi-preconditioned batch against its own
+        # serial Jacobi solve (n=512: no alignment padding either way).
         import tpucg
-        from tpucg.kernels.fused import fused_batch_dia_cg_solve_pallas
-        from tpucg.kernels.spmv import dia_interleave
+        from tpucg.sparse.formats import DIAMatrix
 
         data, offsets, b = self._battery(nsys=3, n=512, seed=3)
-        data_il = np.stack([np.asarray(dia_interleave(data[i]))
-                            for i in range(3)])
-        x, k, rr = fused_batch_dia_cg_solve_pallas(
-            jnp.asarray(data_il), offsets, jnp.asarray(b),
-            jnp.zeros_like(jnp.asarray(b)), tol=1e-5, maxiter=512)
-        ref = tpucg.cg_solve_batch_banded(data, offsets, b, tol=1e-5,
-                                          kernel="xla")
-        assert (np.asarray(rr) < 1e-10).all()
-        np.testing.assert_allclose(np.asarray(x), np.asarray(ref.x),
-                                   rtol=2e-4, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(k),
-                                      np.asarray(ref.iterations))
+        res = tpucg.cg_solve_batch_banded(data, offsets, b, tol=1e-5,
+                                          precondition="jacobi")
+        assert np.asarray(res.converged).all()
+        for i in range(data.shape[0]):
+            dia = DIAMatrix(data=data[i], offsets=offsets,
+                            shape=(data.shape[2],) * 2)
+            one = tpucg.cg_solve(dia, b[i], tol=1e-5, precondition="jacobi")
+            assert abs(int(np.asarray(res.iterations)[i])
+                       - int(one.iterations)) <= 1
+            np.testing.assert_allclose(np.asarray(res.x)[i],
+                                       np.asarray(one.x),
+                                       rtol=2e-4, atol=1e-5)

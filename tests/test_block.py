@@ -216,7 +216,7 @@ def test_block_jacobi_matrix_free_operator():
     data[2, idx[:-1]] = A[idx[:-1], idx[:-1] + 1]
     dia = DIAMatrix(offsets=np.array([-1, 0, 1]), data=data, shape=(n, n))
     np.testing.assert_allclose(dia.to_dense(), A)
-    op = DiaOperator.from_dia(dia, backend="xla")
+    op = DiaOperator.from_dia(dia)
     B = rng.standard_normal((n, k)).astype(np.float32)
     scale = 1.0 / np.sqrt(np.diag(A))
     tol = 1e-5 * float(np.linalg.norm(scale * B[:, 0]))
@@ -240,7 +240,7 @@ def test_block_poly_preconditioned():
     # must cut laps vs plain block CG on the stencil-conditioned Poisson
     # system and match the single-vector poly-PCG solutions.
     m, k = 8, 4
-    op = PoissonOperator(m=m, kernel="xla")
+    op = PoissonOperator(m=m)
     n = m ** 3
     rng = np.random.default_rng(13)
     B = rng.standard_normal((n, k)).astype(np.float32)

@@ -1,6 +1,6 @@
 """Communication-avoiding (s-step) CG tests.
 
-CA-CG completes tpucg's communication-strategy spectrum (the TPU-first
+CA-CG completes tpucg's communication-strategy spectrum (the collective
 extension of the reference's collective-vs-p2p thesis, whose two arms differ
 only in HOW each lap's 3 blocking reductions travel,
 ``parallel_cg.c:287-313``): classic CG pays 2-3 scalar reductions per lap,

@@ -57,10 +57,12 @@ def test_maxiter_cap(golden_4x4):
 
 
 def test_pallas_kernel_backend(golden_4x4):
-    # Forces the Pallas GEMV + fused-update path (interpreted on CPU); the
-    # 4x4 system gets identity-tail padded to the 128-lane contract.
+    # kernel="pallas" is refused (no operator has a Pallas kernel);
+    # kernel="xla" solves the 4x4 golden exactly, with no padding.
     g = golden_4x4
-    res = cg_solve(g["A"], g["b"], g["x0"], config=CGConfig(kernel="pallas"))
+    with pytest.raises(ValueError, match="pallas"):
+        cg_solve(g["A"], g["b"], g["x0"], kernel="pallas")
+    res = cg_solve(g["A"], g["b"], g["x0"], config=CGConfig(kernel="xla"))
     np.testing.assert_allclose(
         np.asarray(res.x), g["x_star"], rtol=1e-5, atol=1e-5
     )

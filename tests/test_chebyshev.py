@@ -1,7 +1,7 @@
 """Chebyshev-iteration tests (``method="chebyshev"``).
 
 Chebyshev iteration is the terminal point of tpucg's reduction-cadence
-spectrum (the TPU-first extension of the reference's collective-vs-p2p
+spectrum (the collective extension of the reference's collective-vs-p2p
 thesis, ``parallel_cg.c:287-313``): classic CG pays 2-3 scalar reductions
 per lap, pipelined 1, CA-CG 2 per s laps — Chebyshev pays ZERO per lap
 (every scalar comes from the spectral-interval recurrence), plus one exact

@@ -143,18 +143,21 @@ def test_stale_checkpoint_from_other_system_rejected(system, tmp_path):
 
 
 def test_checkpoint_resumes_across_kernel_backends(tmp_path):
-    """The identity guard is tolerance-based: the SAME system probed through a
-    different kernel backend (different f32 reduction order) must resume, not
-    be misreported as a different system (ADVICE.md round 1). n=128 so the
-    padded size matches across backends (pallas pads to 128-multiples)."""
+    """The identity guard is tolerance-based: the SAME system resumed under
+    another ``kernel`` setting must resume, not be misreported as a
+    different system (ADVICE.md round 1); ``kernel="pallas"`` is refused
+    before any checkpoint is read."""
     n = 128
     A, b, x0 = tpucg.generate_spd_system(n, seed=4)
     A = A - (n - n / 8.0) * np.eye(n, dtype=np.float32)
     ck = str(tmp_path / "cg.npz")
     cg_solve_checkpointed(A, b, x0, segment_iters=3, maxiter=3,
                           checkpoint_path=ck, kernel="xla")
+    with pytest.raises(ValueError, match="pallas"):
+        cg_solve_checkpointed(A, b, x0, segment_iters=64,
+                              checkpoint_path=ck, kernel="pallas")
     res = cg_solve_checkpointed(A, b, x0, segment_iters=64,
-                                checkpoint_path=ck, kernel="pallas")
+                                checkpoint_path=ck, kernel="auto")
     assert bool(res.converged)
 
 
@@ -404,12 +407,12 @@ def test_sharded_bf16_presharded_dtype_guard():
 
     import tpucg
     from tpucg.io.partitioner import RowPartition
-    from tpucg.solver.sharded import distribute_system, row_align
+    from tpucg.solver.sharded import distribute_system, ROW_ALIGN
 
     n = 64
     A, b, x0 = tpucg.generate_spd_system(n, seed=3)
     mesh = tpucg.make_mesh()
-    part = RowPartition(n=n, num_shards=8, align=row_align("xla"))
+    part = RowPartition(n=n, num_shards=8, align=ROW_ALIGN)
     Ad, bd, x0d = distribute_system(
         A.astype(np.float32), b, x0, mesh, part
     )  # f32 shards
@@ -492,7 +495,7 @@ def test_checkpoint_rejects_two_level_identity_mismatch(irregular, tmp_path):
 def test_checkpointed_stagnation_stop_matches_plain(irregular):
     """A floor-bound two_level solve (tol below the f32 attainable floor)
     stagnation-stops; the segmented driver must stop at the SAME lap, not
-    grind to maxiter. Round-5 on-chip smoke found the grind: the
+    grind to maxiter. A round-5 smoke run found the grind: the
     stagnation bookkeeping (prev boundary true r.r + stagnant flag) lived
     outside the carried state and reset at every segment, so the
     two-consecutive-windows rule never fired. segment_iters=24 lands
@@ -518,7 +521,7 @@ def test_checkpointed_bare_csr_promotes_to_well(irregular, tmp_path):
     """A bare CSR handed to the checkpointed driver rides the WELL
     promotion chain (the docstring's contract), NOT as_operator's legacy
     scalar-gather ELL mapping — the ELL route's un-128-padded npad also
-    rejected any correctly built two_level (found by the round-5 on-chip
+    rejected any correctly built two_level (found by the round-5
     smoke: build_two_level(npad=op.padded_n) vs the Ell operator's raw n)."""
     A, b = irregular
     op = tpucg.best_sparse_operator(A)

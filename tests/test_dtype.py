@@ -38,7 +38,7 @@ def test_f64_solve_tighter_than_f32():
 def test_bf16_storage_solves_perturbed_system():
     n = 128
     A, b, x0 = tpucg.generate_spd_system(n, seed=1)
-    op = DenseOperator.create(A, backend="xla", dtype=jnp.bfloat16)
+    op = DenseOperator.create(A, dtype=jnp.bfloat16)
     assert op.A.dtype == jnp.bfloat16
     tol = 1e-5 * float(np.linalg.norm(b))
     r = tpucg.cg_solve(op, b, x0, tol=tol, maxiter=4 * n)
@@ -54,15 +54,16 @@ def test_bf16_storage_solves_perturbed_system():
     )
 
 
-def test_bf16_pallas_kernel_accumulates_f32():
-    from tpucg.kernels.matvec import matvec_pallas
+def test_bf16_gemv_accumulates_f32():
+    # The dense GEMV (XLA's dot) over bf16 storage accumulates in f32.
+    from tpucg.kernels.matvec import matvec_xla
 
     n = 256
     rng = np.random.default_rng(0)
     A = rng.standard_normal((n, n)).astype(np.float32)
     x = rng.standard_normal(n).astype(np.float32)
     Abf = jnp.asarray(A, jnp.bfloat16)
-    y = np.asarray(matvec_pallas(Abf, jnp.asarray(x)))
+    y = np.asarray(matvec_xla(Abf, jnp.asarray(x)))
     assert y.dtype == np.float32
     y_ref = np.asarray(Abf, np.float32) @ x  # f32 product of bf16-rounded A
     np.testing.assert_allclose(y, y_ref, rtol=1e-5, atol=1e-4)
@@ -84,5 +85,5 @@ def test_f64_poisson_takes_xla_stencil():
         u = jnp.ones(m ** 3, jnp.float64)
         y = op.matvec(u)
         assert y.dtype == jnp.float64
-        ref = PoissonOperator(m=m, kernel="xla").matvec(u)
+        ref = PoissonOperator(m=m).matvec(u)
         np.testing.assert_array_equal(np.asarray(y), np.asarray(ref))

@@ -34,7 +34,7 @@ def test_ir_beats_raw_bf16_accuracy(system):
     from tpucg.solver.operators import DenseOperator
     import jax.numpy as jnp
 
-    op16 = DenseOperator.create(A, backend="xla", dtype=jnp.bfloat16)
+    op16 = DenseOperator.create(A, dtype=jnp.bfloat16)
     raw = tpucg.cg_solve(op16, b, x0, tol=1e-6, maxiter=4 * A.shape[0])
     raw_true = np.linalg.norm(b - A @ np.asarray(raw.x))
     ir = cg_solve_ir(A, b, x0)

@@ -67,11 +67,15 @@ class TestMinres:
         assert int(res.iterations) == 0
 
     def test_padding_and_operator_input(self):
-        # n=100 pads to 128; also exercise the operator path (Pallas GEMV).
+        # n=100 (no 128 multiple) through the operator path; kernel="pallas"
+        # is refused (no operator has a Pallas kernel).
         A = _sym_indefinite(n=100, seed=5)
         b = np.random.default_rng(6).standard_normal(100).astype(np.float32)
         tol = 1e-4 * float(np.linalg.norm(b))
-        res = minres_solve(A, b, tol=tol, maxiter=800, kernel="pallas")
+        with pytest.raises(ValueError, match="pallas"):
+            minres_solve(A, b, tol=tol, maxiter=800, kernel="pallas")
+        res = minres_solve(tpucg.DenseOperator.create(A), b, tol=tol,
+                           maxiter=800)
         assert bool(res.converged)
         assert res.x.shape == (100,)
         x_ref = np.linalg.solve(A.astype(np.float64), b.astype(np.float64))

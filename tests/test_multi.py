@@ -74,17 +74,16 @@ def test_multi_with_sparse_operators():
                              maxiter=4 * n)
     assert bool(r.converged.all())
     np.testing.assert_allclose(np.asarray(r.x), X_true, atol=1e-2)
-    # Matrix-free stencil too (m=8 takes the XLA fallback; the Pallas kernel
-    # under vmap is exercised at m=16 in test_multi_poisson_pallas_vmap).
+    # Matrix-free stencil too (under vmap at m=16 in
+    # test_multi_poisson_stencil_vmap).
     r2 = tpucg.cg_solve_multi(PoissonOperator(m=8), B, tol=tol, maxiter=4 * n)
     assert bool(r2.converged.all())
     np.testing.assert_allclose(np.asarray(r2.x), np.asarray(r.x),
                                rtol=1e-3, atol=1e-4)
 
 
-def test_multi_poisson_pallas_vmap():
-    # m=16 is lane-tileable, so this drives the Pallas stencil kernel through
-    # vmap's pallas_call batching rule.
+def test_multi_poisson_stencil_vmap():
+    # The stencil operator batched by vmap over two right-hand sides.
     from tpucg.solver.operators import PoissonOperator
 
     m, k = 16, 2

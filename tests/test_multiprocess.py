@@ -5,8 +5,8 @@ The reference is genuinely multi-process — P MPI ranks over an interconnect
 ``jax.distributed``: here TWO OS processes (4 forced CPU devices each) form
 one 8-device mesh via a localhost coordinator, each host-loads ONLY its own
 matrix shards, and the sharded solve must match the serial oracle. This is
-the same code path a real multi-host TPU pod takes (ICI within a slice, DCN
-across hosts); the per-process read ledger proves the
+the same code path a real multi-host GPU cluster takes; the per-process
+read ledger proves the
 rank-0-reads-everything ceiling is gone.
 """
 

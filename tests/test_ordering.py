@@ -67,7 +67,7 @@ def test_strength_order_semicoarsens_aniso_grid():
     def laps(order_fn):
         perm = order_fn(A)
         B = permute_csr(A, perm)
-        op = as_operator(jnp.asarray(B.to_dense()), backend="xla")
+        op = as_operator(jnp.asarray(B.to_dense()))
         tl = tpucg.build_two_level(B, agg_size=32, npad=op.padded_n)
         r = tpucg.cg_solve(op, b[perm], tol=tol, maxiter=8 * n,
                            two_level=tl)

@@ -1,7 +1,7 @@
 """Polynomial (truncated-Neumann) preconditioner tests.
 
-The TPU-idiomatic strong preconditioner: M^-1 = w * sum_{i<d} (I - wA)^i —
-only extra matvecs (MXU/VPU + collectives), no triangular solves. SPD for
+A strong preconditioner made of matvecs: M^-1 = w * sum_{i<d} (I - wA)^i —
+only extra matvecs and collectives, no triangular solves. SPD for
 w*lambda_max < 1, which the in-jit power-method estimate guarantees with a
 safety margin, so PCG's theory applies unchanged."""
 

@@ -107,7 +107,7 @@ def test_unknown_preconditioner_rejected():
         tpucg.CGConfig(precondition="ilu")
 
 # --- block-Jacobi (precondition="block_jacobi") ---------------------------
-# The MXU-native strong preconditioner: diagonal bs x bs blocks inverted
+# The batched-GEMM strong preconditioner: diagonal bs x bs blocks inverted
 # once at setup, applied as ONE batched block GEMV per lap. Unlike point
 # Jacobi it absorbs WITHIN-block coupling — on a banded operator whose
 # diagonal is constant (where point Jacobi is a no-op) it still slashes
@@ -141,7 +141,7 @@ def test_block_jacobi_extraction_matches_dense():
     rng = np.random.default_rng(0)
     A = rng.standard_normal((100, 100)).astype(np.float32)
     A = A + A.T + 200 * np.eye(100, dtype=np.float32)
-    op = DenseOperator.create(A, backend="xla")
+    op = DenseOperator.create(A)
     for bs in (8, 64):  # 64 does not divide 100: tail identity blocks
         np.testing.assert_allclose(
             np.asarray(op.diagonal_blocks(bs)), blocks_ref(A, bs), atol=0
@@ -158,17 +158,16 @@ def test_block_jacobi_extraction_matches_dense():
         data[d, lo:hi] = v
         Ad[idx[lo:hi], idx[lo:hi] + off] = v
     dia = DIAMatrix(offsets=np.array(offs), data=data, shape=(n, n))
-    for backend in ("xla", "pallas"):  # pallas = interleaved storage
-        opd = DiaOperator.from_dia(dia, backend=backend)
-        Adp = np.eye(opd.padded_n, dtype=np.float32)
-        Adp[:n, :n] = Ad
-        for bs in (8, 64):
-            np.testing.assert_allclose(
-                np.asarray(opd.diagonal_blocks(bs)), blocks_ref(Adp, bs),
-                atol=0, err_msg=f"{backend} bs={bs}",
-            )
+    opd = DiaOperator.from_dia(dia)
+    Adp = np.eye(opd.padded_n, dtype=np.float32)
+    Adp[:n, :n] = Ad
+    for bs in (8, 64):
+        np.testing.assert_allclose(
+            np.asarray(opd.diagonal_blocks(bs)), blocks_ref(Adp, bs),
+            atol=0, err_msg=f"bs={bs}",
+        )
 
-    pop = PoissonOperator(m=8, kernel="xla")
+    pop = PoissonOperator(m=8)
     Ap = poisson3d_csr(8).to_dense().astype(np.float32)
     for bs in (4, 16, 128):  # 128 > m^2: all three stencil offsets in-block
         np.testing.assert_allclose(
@@ -195,7 +194,7 @@ def test_block_jacobi_beats_plain_and_point_on_band():
 
 
 def test_block_jacobi_operators_and_methods():
-    # DIA (both storage layouts) and chebyshev composition, same band.
+    # DIA and chebyshev composition, same band.
     from tpucg.solver.operators import DiaOperator
     from tpucg.sparse.formats import DIAMatrix
 
@@ -211,13 +210,12 @@ def test_block_jacobi_operators_and_methods():
     data[1] = 2.0
     data[2, idx[:-1]] = -1.0
     dia = DIAMatrix(offsets=np.array([-1, 0, 1]), data=data, shape=(n, n))
-    for backend in ("xla", "pallas"):
-        opd = DiaOperator.from_dia(dia, backend=backend)
-        rd = tpucg.cg_solve(opd, b, tol=tol, maxiter=8 * n,
-                            precondition="block_jacobi")
-        assert bool(rd.converged), backend
-        resid = np.linalg.norm(b - L @ np.asarray(rd.x)[:n])
-        assert resid < 2 * tol, (backend, resid)
+    opd = DiaOperator.from_dia(dia)
+    rd = tpucg.cg_solve(opd, b, tol=tol, maxiter=8 * n,
+                        precondition="block_jacobi")
+    assert bool(rd.converged)
+    resid = np.linalg.norm(b - L @ np.asarray(rd.x)[:n])
+    assert resid < 2 * tol, resid
     rc = tpucg.cg_solve(L, b, tol=tol, maxiter=8 * n, method="chebyshev",
                         precondition="block_jacobi")
     assert bool(rc.converged)
@@ -228,7 +226,7 @@ def test_block_jacobi_operators_and_methods():
 def test_block_jacobi_poisson_parity():
     m = 8
     n = m ** 3
-    op = PoissonOperator(m=m, kernel="xla")
+    op = PoissonOperator(m=m)
     b = np.ones(n, np.float32)
     tol = 1e-5 * float(np.linalg.norm(b))
     p0 = tpucg.cg_solve(op, b, tol=tol, maxiter=8 * n)

@@ -58,32 +58,34 @@ def test_strategies_agree(mesh8):
 
 
 @pytest.mark.parametrize("strategy", ["allgather", "overlap"])
-def test_sharded_pallas_kernel_under_shard_map(mesh8, strategy):
-    """Pallas GEMV INSIDE shard_map, exercised off-chip (interpreter mode on
-    the CPU mesh): a Mosaic/VMA wiring regression in the sharded Pallas arms
-    must fail here in CI, not first on a live TPU (VERDICT round 1, weak 4).
-    n=1024 so every shard's (128, 1024) block meets the Pallas alignment."""
+def test_sharded_gemv_under_shard_map(mesh8, strategy):
+    """The sharded dense GEMV has no Pallas kernel: ``kernel="pallas"`` is
+    refused loudly (never served by an interpreter or another kernel), and
+    the default kernel inside shard_map matches the oracle at n=1024."""
     n = 1024
     A, b, x0 = generate_spd_system(n, seed=3)
     ox, oiters, _ = oracle_cg(A, b, x0)
+    with pytest.raises(ValueError, match="pallas"):
+        sharded_cg_solve(A, b, x0, mesh=mesh8, strategy=strategy,
+                         kernel="pallas")
     res = sharded_cg_solve(
-        A, b, x0, mesh=mesh8,
-        config=CGConfig(strategy=strategy, kernel="pallas"),
+        A, b, x0, mesh=mesh8, config=CGConfig(strategy=strategy),
     )
     assert bool(res.converged)
     assert abs(int(res.iterations) - oiters) <= 1
     np.testing.assert_allclose(np.asarray(res.x), ox, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded2d_pallas_kernel_under_shard_map():
-    """Pallas GEMV inside the 2-D SUMMA shard_map (interpreter mode)."""
+def test_sharded2d_gemv_under_shard_map():
+    """The 2-D SUMMA arm refuses ``kernel="pallas"`` and solves with the
+    default kernel."""
     from tpucg import make_mesh2d
 
-    n = 2048  # pads to lcm(R*C, R*128, C*128) = 2048 exactly on a 2x4 mesh
+    n = 2048
     A, b, x0 = generate_spd_system(n, seed=5)
-    res = sharded_cg_solve(
-        A, b, x0, mesh=make_mesh2d(2, 4), config=CGConfig(kernel="pallas")
-    )
+    with pytest.raises(ValueError, match="pallas"):
+        sharded_cg_solve(A, b, x0, mesh=make_mesh2d(2, 4), kernel="pallas")
+    res = sharded_cg_solve(A, b, x0, mesh=make_mesh2d(2, 4))
     assert bool(res.converged)
     np.testing.assert_allclose(
         A @ np.asarray(res.x), b, atol=1e-3 * float(np.linalg.norm(b))

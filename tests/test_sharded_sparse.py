@@ -109,11 +109,10 @@ def test_ell_non_divisible_padded():
     )
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas"])
-def test_dia_sharded_band_halo(kernel):
+def test_dia_sharded_band_halo():
     """Row-block-sharded DIA with the ppermute BAND-halo exchange (O(band)
-    comm per lap) — both the XLA and fused-Pallas per-shard kernels — vs the
-    serial solve. m=16 -> n=4096 = 8 x 512-row blocks, band reach 256."""
+    comm per lap) vs the serial solve. m=16 -> n=4096 = 8 x 512-row blocks,
+    band reach 256."""
     from tpucg.io.generator import poisson3d_dia
 
     m = 16
@@ -124,9 +123,7 @@ def test_dia_sharded_band_halo(kernel):
     b = dia.matvec(x_true).astype(np.float32)
     tol = 1e-5 * float(np.linalg.norm(b))
     ser = tpucg.cg_solve(PoissonOperator(m=m), b, tol=tol, maxiter=4 * n)
-    sh = sharded_operator_cg_solve(
-        dia, b, tol=tol, maxiter=4 * n, kernel=kernel
-    )
+    sh = sharded_operator_cg_solve(dia, b, tol=tol, maxiter=4 * n)
     assert bool(sh.converged)
     assert abs(int(sh.iterations) - int(ser.iterations)) <= 1
     np.testing.assert_allclose(
@@ -207,11 +204,9 @@ def test_ell_sharded_matches_serial():
     )
 
 
-def test_poisson_slab_pallas_matches_xla():
-    # m=16 grid: lane-tileable so the sharded path uses the Pallas slab
-    # kernel; cross-check against a solve forced down the XLA fallback by a
-    # non-tileable grid is covered above — here compare directly to the
-    # serial operator.
+def test_poisson_slab_matches_serial():
+    # m=16 grid: the sharded slab solve (XLA stencil + halo planes) against
+    # the serial operator, lap for lap.
     m = 16
     op = PoissonOperator(m=m)
     rng = np.random.default_rng(4)
@@ -228,34 +223,32 @@ def test_poisson_slab_pallas_matches_xla():
 
 
 def test_poisson_slab_kernel_direct():
-    from tpucg.kernels.stencil import poisson3d_slab_pallas
+    """The slab-halo matvec alone (one ppermute'd plane from each
+    neighbour, then the in-slab stencil) on a 4-device mesh equals the
+    serial stencil."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
 
-    m, P = 16, 4
-    mp = m // P
-    op = PoissonOperator(m=m, kernel="xla")
-    rng = np.random.default_rng(5)
-    u = rng.standard_normal((m, m, m)).astype(np.float32)
-    y_ref = np.asarray(op.matvec(jnp.asarray(u.reshape(-1)))).reshape(m, m, m)
-    for d in range(P):
-        slab = u[d * mp:(d + 1) * mp]
-        lo = (
-            u[d * mp - 1:d * mp] if d > 0
-            else np.zeros((1, m, m), np.float32)
-        )
-        hi = (
-            u[(d + 1) * mp:(d + 1) * mp + 1] if d < P - 1
-            else np.zeros((1, m, m), np.float32)
-        )
-        y = np.asarray(poisson3d_slab_pallas(
-            jnp.asarray(slab.reshape(mp, m * m)),
-            jnp.asarray(lo.reshape(1, m * m)),
-            jnp.asarray(hi.reshape(1, m * m)),
-            m,
-        ))
-        np.testing.assert_allclose(
-            y.reshape(mp, m, m), y_ref[d * mp:(d + 1) * mp],
-            rtol=1e-5, atol=1e-5,
-        )
+    from tpucg.solver.sharded import (
+        _prepare_sharded_operator,
+        _sharded_operator_matvec_jit,
+    )
+
+    m, ndev = 16, 4
+    mesh = tpucg.make_mesh(ndev)
+    axis = mesh.axis_names[0]
+    op = PoissonOperator(m=m)
+    op_arrays, statics, n, npad, _ = _prepare_sharded_operator(
+        op, mesh, tpucg.CGConfig()
+    )
+    assert npad == n == m ** 3
+    u = np.random.default_rng(5).standard_normal(n).astype(np.float32)
+    v = jax.device_put(jnp.asarray(u), NamedSharding(mesh,
+                                                    PartitionSpec(axis)))
+    y = np.asarray(_sharded_operator_matvec_jit(
+        op_arrays, v, mesh=mesh, axis=axis, **statics))
+    y_ref = np.asarray(op.matvec(jnp.asarray(u)))
+    np.testing.assert_allclose(y, y_ref, rtol=1e-6, atol=1e-5)
 
 
 def test_poisson_larger_grid_smoke():
@@ -567,7 +560,7 @@ class TestOperatorShardedBlockJacobi:
         # Serial/sharded recurrence parity on the same preconditioner.
         ser = tpucg.cg_solve(
             dia, b, tol=tol, maxiter=8 * n,
-            precondition="block_jacobi", pc_block_size=32, fused="never",
+            precondition="block_jacobi", pc_block_size=32,
         )
         # Serial blocks span the whole matrix; sharded blocks restart per
         # shard — same M here because 32 divides the 128-row shards and

@@ -123,8 +123,8 @@ def test_dia_operator_spmv_and_solve():
         rtol=1e-5, atol=1e-5,
     )
     np.testing.assert_allclose(np.asarray(op.diagonal())[:n], 6.0)
-    # backend="xla" keeps the logical shape (no Pallas alignment needed).
-    op_x = DiaOperator.from_dia(dia, backend="xla")
+    # The DIA operator keeps the logical shape (no alignment padding).
+    op_x = DiaOperator.from_dia(dia)
     assert op_x.padded_n == n
     np.testing.assert_allclose(
         np.asarray(op_x.matvec(jnp.asarray(x))), csr.matvec(x),
@@ -185,22 +185,17 @@ def test_random_banded_dia_round_trip():
                                atol=1e-5)
 
 
-def test_dia_pallas_kernel_matches_host():
-    """The fused Pallas DIA kernel (interpret mode off-TPU) vs the host
-    oracle, over offsets exercising every shift decomposition case: lane-only
-    (|off| < 128), sublane-only (off % 128 == 0), and mixed, both signs."""
+def test_dia_spmv_matches_host():
+    """``dia_spmv`` (the XLA shift-and-add every DIA operator runs) vs the
+    host oracle over offsets of every size class — within a 128-row tile,
+    exactly one tile, and beyond it — of both signs."""
     import jax.numpy as jnp
 
-    from tpucg.kernels.spmv import (
-        dia_interleave,
-        dia_spmv_interleaved_xla,
-        dia_spmv_pallas,
-        dia_supported,
-    )
+    from tpucg.kernels.spmv import dia_spmv
     from tpucg.sparse.formats import DIAMatrix
 
     rng = np.random.default_rng(7)
-    n = 1024  # rows = 8
+    n = 1024
     offsets = (-257, -128, -3, 0, 1, 127, 128, 300)
     data = rng.standard_normal((len(offsets), n)).astype(np.float32)
     # Zero entries whose column falls outside [0, n) — the DIA contract.
@@ -210,39 +205,35 @@ def test_dia_pallas_kernel_matches_host():
         data[d, (cols < 0) | (cols >= n)] = 0.0
     dia = DIAMatrix(offsets=np.asarray(offsets), data=data, shape=(n, n))
     x = rng.standard_normal(n).astype(np.float32)
-    assert dia_supported(n, offsets)
-    data_il = jnp.asarray(dia_interleave(data))
-    y = np.asarray(dia_spmv_pallas(data_il, offsets, jnp.asarray(x)))
+    y = np.asarray(dia_spmv(jnp.asarray(data), offsets, jnp.asarray(x)))
     np.testing.assert_allclose(y, dia.matvec(x), rtol=1e-5, atol=1e-4)
-    # The interleaved-layout XLA fallback agrees too.
-    y_x = np.asarray(dia_spmv_interleaved_xla(data_il, offsets, jnp.asarray(x)))
-    np.testing.assert_allclose(y_x, dia.matvec(x), rtol=1e-5, atol=1e-4)
 
 
-def test_dia_pallas_poisson_parity():
-    """poisson3d_dia == csr path, and the forced-Pallas operator matvec
-    matches the XLA one on the m=16 grid (n=4096)."""
+def test_dia_poisson_parity():
+    """poisson3d_dia == csr path: the DIA operator's matvec matches the
+    matrix-free stencil and the host CSR on the m=16 grid (n=4096)."""
     import jax.numpy as jnp
 
-    from tpucg.io.generator import poisson3d_dia
-    from tpucg.solver.operators import DiaOperator
+    from tpucg.io.generator import poisson3d_csr, poisson3d_dia
+    from tpucg.solver.operators import DiaOperator, PoissonOperator
 
     m = 16
     dia = poisson3d_dia(m)
     n = m ** 3
-    op_p = DiaOperator.from_dia(dia, backend="pallas")
-    op_x = DiaOperator.from_dia(dia, backend="xla")
+    op = DiaOperator.from_dia(dia)
+    assert op.padded_n == n
     rng = np.random.default_rng(2)
     x = rng.standard_normal(n).astype(np.float32)
-    y_p = np.asarray(op_p.matvec(jnp.asarray(x)))
-    y_x = np.asarray(op_x.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(y_p, y_x, rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(y_p, dia.matvec(x), rtol=1e-5, atol=1e-4)
+    y = np.asarray(op.matvec(jnp.asarray(x)))
+    y_s = np.asarray(PoissonOperator(m=m).matvec(jnp.asarray(x)))
+    np.testing.assert_allclose(y, y_s, rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(y, poisson3d_csr(m).matvec(x), rtol=1e-5,
+                               atol=1e-4)
 
 
-def test_dia_pallas_padded_solve():
-    """A non-128-divisible banded system through the forced-Pallas operator:
-    from_dia pads with an identity tail and the CG solve still matches."""
+def test_dia_unaligned_solve():
+    """A non-128-divisible banded system: the DIA operator keeps the logical
+    size (no padding) and the CG solve matches."""
     import tpucg
     from tpucg.sparse.formats import COOMatrix, csr_to_dia
     from tpucg.solver.operators import DiaOperator
@@ -264,8 +255,8 @@ def test_dia_pallas_padded_solve():
     )
     csr = coo.to_csr()
     dia = csr_to_dia(csr)
-    op = DiaOperator.from_dia(dia, backend="pallas")
-    assert op.padded_n == 256 and op.n == n
+    op = DiaOperator.from_dia(dia)
+    assert op.padded_n == n and op.n == n
     x_true = rng.standard_normal(n).astype(np.float32)
     b = csr.matvec(x_true)
     tol = 1e-5 * float(np.linalg.norm(b))
@@ -369,30 +360,35 @@ def test_csr_to_dia_sums_unsorted_duplicates():
     assert A[0, 1] == 5.0
 
 
-def test_dia_pallas_fuzz_random_offset_sets():
-    """Property: the fused Pallas DIA kernel (interpret mode) matches the
-    host oracle for randomized banded structures — random offset sets
-    (both signs, lane/sublane/mixed decompositions), random sizes."""
+def test_dia_fuzz_random_offset_sets():
+    """Property: ``dia_spmv`` matches the host oracle for randomized banded
+    structures (random offset sets of both signs, random sizes)."""
+    _dia_fuzz(halo=False)
+
+
+def test_dia_halo_fuzz_random_offset_sets():
+    """The same product taken block by block through ``dia_spmv_halo`` with
+    the neighbours' elements as halos — the per-shard form of the
+    band-halo decomposition — matches the host oracle."""
+    _dia_fuzz(halo=True)
+
+
+def _dia_fuzz(halo):
     import jax.numpy as jnp
 
-    from tpucg.kernels.spmv import (
-        dia_interleave,
-        dia_spmv_pallas,
-        dia_supported,
-    )
+    from tpucg.kernels.spmv import dia_halo_width, dia_spmv, dia_spmv_halo
     from tpucg.sparse.formats import DIAMatrix
 
     rng = np.random.default_rng(17)
     for trial in range(6):
-        rows = int(rng.integers(2, 20))
-        n = rows * 128
+        nblk = 4
+        blk = int(rng.integers(16, 200))
+        n = nblk * blk
         ndiag = int(rng.integers(1, 9))
         offs = set()
         while len(offs) < ndiag:
-            offs.add(int(rng.integers(-(n - 1), n)))
+            offs.add(int(rng.integers(-blk, blk + 1)))
         offsets = tuple(sorted(offs))
-        if not dia_supported(n, offsets):
-            continue
         data = rng.standard_normal((len(offsets), n)).astype(np.float32)
         idx = np.arange(n)
         for d, off in enumerate(offsets):
@@ -402,11 +398,22 @@ def test_dia_pallas_fuzz_random_offset_sets():
             offsets=np.asarray(offsets), data=data, shape=(n, n)
         )
         x = rng.standard_normal(n).astype(np.float32)
-        y = np.asarray(
-            dia_spmv_pallas(
-                jnp.asarray(dia_interleave(data)), offsets, jnp.asarray(x)
-            )
-        )
+        if not halo:
+            y = np.asarray(dia_spmv(jnp.asarray(data), offsets,
+                                    jnp.asarray(x)))
+        else:
+            w = dia_halo_width(offsets)
+            xp = np.concatenate([np.zeros(w, np.float32), x,
+                                 np.zeros(w, np.float32)])
+            y = np.concatenate([
+                np.asarray(dia_spmv_halo(
+                    jnp.asarray(data[:, i * blk:(i + 1) * blk]), offsets,
+                    jnp.asarray(x[i * blk:(i + 1) * blk]),
+                    jnp.asarray(xp[i * blk:i * blk + w]),
+                    jnp.asarray(xp[(i + 1) * blk + w:(i + 1) * blk + 2 * w]),
+                ))
+                for i in range(nblk)
+            ])
         np.testing.assert_allclose(
             y, dia.matvec(x), rtol=1e-5, atol=1e-4,
             err_msg=f"trial={trial} n={n} offsets={offsets}",
@@ -448,12 +455,11 @@ class TestDiaBf16Storage:
 
     def test_fused_dispatch_and_random_band(self):
         # Random-valued band: bf16 rounds A (rel ~1e-2); the solve
-        # converges on the ROUNDED system (f32 contract on bf16 A).
+        # converges on the ROUNDED system (f32 contract on bf16 A) through
+        # the jitted while_loop, the only solve path.
         import jax.numpy as jnp
 
         import tpucg
-        from tpucg.kernels.fused import fused_dia_supported
-        from tpucg.solver.cg import _fused_eligible
         from tpucg.solver.operators import DiaOperator
         from tpucg.sparse.formats import DIAMatrix
 
@@ -463,10 +469,7 @@ class TestDiaBf16Storage:
         data = np.stack([off, np.full(n, 8.0, np.float32), off])
         dia = DIAMatrix(data=data, offsets=(-1, 0, 1), shape=(n, n))
         op16 = DiaOperator.from_dia(dia, storage_dtype=jnp.bfloat16)
-        assert fused_dia_supported(op16.padded_n, op16.offsets, 2)
-        cfg = tpucg.CGConfig(fused="auto")
-        assert _fused_eligible(cfg, op16, "pallas", jnp.float32,
-                               False) == "dia"
+        assert op16.data.dtype == jnp.bfloat16 and op16.padded_n == n
         b = rng.standard_normal(n).astype(np.float32)
         tol = 1e-4 * float(np.linalg.norm(b))
         res = tpucg.cg_solve(op16, b, tol=tol)

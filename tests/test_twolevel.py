@@ -86,7 +86,7 @@ def test_two_level_preconditioner_is_spd():
 
 
 def test_two_level_on_well_operator():
-    # The target pipeline: irregular CSR -> WELL (XLA fallback off-TPU),
+    # The target pipeline: irregular CSR -> WELL,
     # two-level built against the WELL padding (round_up(n, 128) default).
     A, b, _ = random_geometric_spd(20_000, seed=0, avg_degree=12.0,
                                    shift=0.05)

@@ -71,11 +71,10 @@ def test_well_builder_invariants():
     assert well.lidx.min() >= 0 and well.lidx.max() < 128
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_well_operator_matvec(backend):
+def test_well_operator_matvec():
     n = 500
     A = _random_csr(n, 0.02, seed=5)
-    op = tpucg.WellOperator.from_csr(A, backend=backend)
+    op = tpucg.WellOperator.from_csr(A)
     x = np.random.default_rng(2).standard_normal(n).astype(np.float32)
     y = np.asarray(op.matvec(jnp.asarray(_pad(x, op.padded_n))))[:n]
     ref = A.matvec(x.astype(np.float64))
@@ -278,31 +277,3 @@ def test_best_sparse_operator_threads_pc_block_size():
     r = tpucg.cg_solve(op, b, tol=1e-6, precondition="block_jacobi",
                        pc_block_size=32)
     assert bool(r.converged)
-
-
-def test_fused_gather_kernel_parity():
-    """round-5 experiment kernel (well_spmv_fused_gather): the in-kernel
-    double-buffered window-gather DMA must be numerically identical to
-    the two-dispatch kernel/XLA reference (interpreter mode here; the
-    on-chip A/B lives in benchmarks/well_fused_ab.py)."""
-    import jax.numpy as jnp
-
-    from tpucg.io.generator import random_geometric_spd
-    from tpucg.kernels.gather_spmv import (
-        well_spmv_fused_gather,
-        well_spmv_xla,
-    )
-    from tpucg.sparse.well import csr_to_well
-
-    A, _, _ = random_geometric_spd(3_000, seed=7, avg_degree=9.0)
-    w = csr_to_well(A)
-    npad = -(-A.shape[0] // 128) * 128
-    x = np.random.default_rng(8).standard_normal(npad).astype(np.float32)
-    x2 = jnp.asarray(x.reshape(-1, 128))
-    args = (jnp.asarray(w.vals), jnp.asarray(w.lidx), jnp.asarray(w.gidl),
-            jnp.asarray(w.wrow), jnp.asarray(w.sgb), x2,
-            w.groups_per_super, w.n_supergroups)
-    y_f = np.asarray(well_spmv_fused_gather(*args))
-    y_x = np.asarray(well_spmv_xla(*args))
-    rel = np.abs(y_f - y_x).max() / (np.abs(y_x).max() + 1e-30)
-    assert rel < 1e-5, rel

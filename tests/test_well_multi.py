@@ -1,11 +1,7 @@
 """Multi-RHS WELL: the vmapped batched matvec and the lockstep loop.
 
-``WellOperator.matvec_multi`` is ``jax.vmap`` of the single-RHS WELL kernel
-over the RHS axis — Mosaic batches the lane axis minor-grid and elides
-repeated block fetches, so the matrix streams effectively once per lap for
-all k columns. A hand-fused scratch SpMM kernel was built and measured
-SLOWER at every size (the recorded negative result,
-``kernels/gather_spmv.py``), so the vmapped form is the keeper.
+``WellOperator.matvec_multi`` is ``jax.vmap`` of the single-RHS WELL product
+over the RHS axis; its columns must equal single-RHS applies bit for bit.
 ``multi_cg_loop`` is the matrix-form lockstep recurrence on top of it; its
 per-column iterates must match ``cg_loop``'s exactly (reference stopping
 contract per column: true residual after the x/r update,
@@ -34,11 +30,10 @@ def _rhs(npad, n, k, seed=0):
     return jnp.asarray(B)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("k", [1, 3, 8])
-def test_matvec_multi_parity(geo, backend, k):
+def test_matvec_multi_parity(geo, k):
     A, _ = geo
-    op = tpucg.WellOperator.from_csr(A, backend=backend)
+    op = tpucg.WellOperator.from_csr(A)
     X = _rhs(op.padded_n, A.shape[0], k, seed=1)
     Y = np.asarray(op.matvec_multi(X))
     Yref = np.stack(
@@ -50,7 +45,7 @@ def test_matvec_multi_parity(geo, backend, k):
 def test_matvec_multi_parity_bf16(geo):
     A, _ = geo
     op = tpucg.WellOperator.from_csr(
-        A, backend="pallas", storage_dtype=jnp.bfloat16
+        A, storage_dtype=jnp.bfloat16
     )
     X = _rhs(op.padded_n, A.shape[0], 4, seed=2)
     Y = np.asarray(op.matvec_multi(X))
@@ -90,7 +85,6 @@ def test_multi_well_matches_singles(geo, precondition):
         single = tpucg.cg_solve(
             op, B[:n, j], tol=tol, maxiter=4 * n,
             precondition=precondition, pc_block_size=pc_bs,
-            fused="never",
         )
         assert bool(single.converged)
         assert abs(int(np.asarray(res.iterations)[j])

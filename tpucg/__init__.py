@@ -1,11 +1,12 @@
-"""tpucg — a TPU-native conjugate-gradient solver library.
+"""tpucg — a conjugate-gradient solver library in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
+A from-scratch JAX/XLA framework with the capabilities of the reference
 C/MPI project ``mawunyega/conjugate_gradient`` (serial + parallel unpreconditioned
-CG for dense/sparse SPD systems), re-designed TPU-first:
+CG for dense/sparse SPD systems), running on NVIDIA GPUs:
 
-- compute kernels (GEMV, dot, axpy, fused CG updates) as Pallas TPU kernels with
-  XLA fallbacks (reference: plain C loops, ``serialConjugate.c:109-177``);
+- compute kernels (GEMV, dot, axpy, fused CG updates) as XLA operations at
+  full f32 precision (reference: plain C loops,
+  ``serialConjugate.c:109-177``);
 - the CG iteration as a jit-compiled ``jax.lax.while_loop`` with the reference's
   float32 / ``sqrt(r.r) < 1e-6`` / <= n-iteration contract
   (reference: ``serialConjugate.c:180-259``);
@@ -13,8 +14,8 @@ CG for dense/sparse SPD systems), re-designed TPU-first:
   scalar reductions (reference: ``MPI_Allreduce``, ``parallel_cg.c:287-313``) and
   two selectable communication strategies — ``allgather`` (reference:
   ``MPI_Allgather``, ``parallel_cg.c:290-291``) and ``overlap`` (a
-  collective-permute ring with compute/comm overlap; the TPU-native answer to the
-  hand-rolled send/recv arm in ``point-to-point_cg.c:180-394``).
+  collective-permute ring with compute/comm overlap; the collective answer to
+  the hand-rolled send/recv arm in ``point-to-point_cg.c:180-394``).
 """
 
 from tpucg.config import CGConfig

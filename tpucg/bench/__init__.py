@@ -1,9 +1,9 @@
 """Benchmark harness: three-phase timing and roofline analysis."""
 
 from tpucg.bench.timing import (
-    HBM_PEAK_BYTES_PER_S,
+    DEVICE_PEAKS,
     BenchReport,
-    auto_steps,
+    has_peaks,
     hbm_peak_bytes_per_s,
     time_fn,
     time_matvec_loop,
@@ -12,10 +12,10 @@ from tpucg.bench.timing import (
 
 __all__ = [
     "BenchReport",
-    "auto_steps",
+    "DEVICE_PEAKS",
+    "has_peaks",
     "time_fn",
     "time_matvec_loop",
     "time_solve_chain",
     "hbm_peak_bytes_per_s",
-    "HBM_PEAK_BYTES_PER_S",
 ]

@@ -37,7 +37,7 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
                    help="serial = single device; allgather/overlap = sharded "
                         "(the reference's collective vs p2p arms)")
     p.add_argument("--kernel", default="auto",
-                   choices=("auto", "pallas", "xla"))
+                   choices=("auto", "xla"))
     p.add_argument("--devices", type=int, default=None,
                    help="mesh size for sharded strategies (default: all)")
     p.add_argument("--method", default="cg",
@@ -66,11 +66,6 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
                         "(e.g. from `tpucg info --spectrum`): skips the "
                         "per-solve power-method setup — the reusable-"
                         "artifact path for repeated solves on one operator")
-    p.add_argument("--fused", default="auto",
-                   choices=("auto", "always", "never"),
-                   help="whole-solve-in-one-kernel dispatch for small "
-                        "VMEM-resident dense systems (auto = below the "
-                        "measured crossover)")
     p.add_argument("--precondition", default="none",
                    choices=("none", "jacobi", "block_jacobi", "poly"))
     p.add_argument("--poly-degree", type=int, default=3,
@@ -137,7 +132,7 @@ def _solve_args(args, A, b, x0):
             method=args.method, precondition=args.precondition,
             poly_degree=args.poly_degree, s_step=args.s_step,
             pc_block_size=args.pc_block_size,
-            check_every=args.check_every, fused=args.fused,
+            check_every=args.check_every,
             record_residuals=record,
             interval=getattr(args, "interval", None),
         )
@@ -153,21 +148,18 @@ def _apply_storage(args, A):
         return A
     import numpy as np
 
-    from tpucg.kernels.dispatch import resolve_backend
     from tpucg.solver.operators import DenseOperator, DiaOperator
     from tpucg.sparse.formats import DIAMatrix
 
     if isinstance(A, np.ndarray) and A.ndim == 2:
-        return DenseOperator.create(
-            A, backend=resolve_backend(args.kernel), dtype="bfloat16"
-        )
+        return DenseOperator.create(A, dtype="bfloat16")
     if isinstance(A, (DiaOperator, DIAMatrix)):
         from tpucg.solver.sharded import _dia_canonical
 
         data, offsets, n = _dia_canonical(A)
         return DiaOperator.from_dia(
             DIAMatrix(data=data, offsets=offsets, shape=(n, n)),
-            backend=args.kernel, storage_dtype="bfloat16",
+            storage_dtype="bfloat16",
         )
     from tpucg.solver.operators import WellOperator
 
@@ -205,8 +197,8 @@ def _load_rhs_any(path: str, n: int) -> "np.ndarray":
 
 
 def _cmd_solve_mtx(args, t_total0) -> int:
-    """Sparse MatrixMarket solve: auto-promote to the most TPU-honest
-    device format (DIA/BSR/ELL, `best_sparse_operator`) and run the
+    """Sparse MatrixMarket solve: auto-promote to a structured device
+    format (DIA/BSR/WELL, `best_sparse_operator`) and run the
     operator CG path, serial or sharded."""
     import jax
     import numpy as np
@@ -248,7 +240,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
                     if s_theta is not None else rcm_order(csr))
             csr = permute_csr(csr, perm)
         A_or_op = tpucg.best_sparse_operator(
-            csr, backend=args.kernel,
+            csr,
             # WELL needs its diagonal blocks extracted from the CSR at
             # construction (the packed slabs are not addressable).
             pc_block_size=(
@@ -399,8 +391,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
                 kernel=args.kernel, strategy=args.strategy, **mr_kw)
     elif args.strategy == "serial":
         res = tpucg.cg_solve(A_or_op, b, x0, kernel=args.kernel,
-                             fused=args.fused, record_residuals=record,
-                             **kw)
+                             record_residuals=record, **kw)
     elif isinstance(A_or_op, np.ndarray):
         res = tpucg.sharded_cg_solve(
             A_or_op, b, x0, mesh=tpucg.make_mesh(args.devices),
@@ -863,7 +854,7 @@ def cmd_selftest(args) -> int:
     return 0
 
 
-def _build_bench_system(args, backend):
+def _build_bench_system(args):
     """Returns (label, operator-or-A, b, x0, n, nnz or None)."""
     import numpy as np
 
@@ -910,7 +901,7 @@ def _build_bench_system(args, backend):
     return f"poisson-ell m={m}", csr, b, None, n, csr.nnz
 
 
-def _bench_one(args, strategy, backend):
+def _bench_one(args, strategy):
     import contextlib
 
     import jax
@@ -921,7 +912,7 @@ def _bench_one(args, strategy, backend):
     from tpucg.solver.operators import DenseOperator, as_operator
 
     t_total0 = time.perf_counter()
-    label, A, b, x0, n, nnz = _build_bench_system(args, backend)
+    label, A, b, x0, n, nnz = _build_bench_system(args)
 
     profile_cm = (
         jax.profiler.trace(args.profile)
@@ -940,10 +931,10 @@ def _bench_one(args, strategy, backend):
               precondition=args.precondition, poly_degree=args.poly_degree,
               s_step=args.s_step, check_every=args.check_every,
               pc_block_size=args.pc_block_size,
-              kernel=args.kernel, fused=args.fused)
+              kernel=args.kernel)
     t0 = time.perf_counter()
     if strategy == "serial":
-        op = as_operator(A, backend=backend)
+        op = as_operator(A)
         bj = jax.device_put(jax.numpy.asarray(b, jax.numpy.float32))
         x0j = (
             jax.device_put(jax.numpy.asarray(x0))
@@ -956,11 +947,11 @@ def _bench_one(args, strategy, backend):
         if args.operator != "dense":
             raise SystemExit("sharded bench currently runs the dense operator")
         from tpucg.io.partitioner import RowPartition
-        from tpucg.solver.sharded import distribute_system, row_align
+        from tpucg.solver.sharded import distribute_system, ROW_ALIGN
 
         mesh = tpucg.make_mesh(args.devices)
         part = RowPartition(
-            n=n, num_shards=mesh.devices.size, align=row_align(backend)
+            n=n, num_shards=mesh.devices.size, align=ROW_ALIGN
         )
         # Pad + place once, INSIDE the distribution phase (the reference's
         # MPI_Scatter fence) — not re-paid inside every timed solve.
@@ -983,14 +974,8 @@ def _bench_one(args, strategy, backend):
         )
     matvec_s = None
     if strategy == "serial":
-        from tpucg.bench.timing import auto_steps
-
-        npad = op.padded_n
-        v0 = jax.numpy.ones(npad, jax.numpy.float32)
-        matvec_s = time_matvec_loop(
-            lambda o, v: o.matvec(v), op, v0,
-            steps=auto_steps(npad) if args.operator == "dense" else 64,
-        )
+        v0 = jax.numpy.ones(op.padded_n, jax.numpy.float32)
+        matvec_s = time_matvec_loop(lambda o, v: o.matvec(v), op, v0)
     report = BenchReport(
         n=n,
         iterations=int(res.iterations),
@@ -1002,21 +987,17 @@ def _bench_one(args, strategy, backend):
         nnz=nnz,
         padded_n=(op.padded_n if strategy == "serial" else None),
         strategy=f"{strategy}/{label}/{args.method}",
-        backend=backend,
     ).finalize()
     return report
 
 
 def cmd_bench(args) -> int:
-    from tpucg.kernels.dispatch import resolve_backend
-
-    backend = resolve_backend(args.kernel)
     if args.compare_strategies:
         # The reference repo's entire research question — collective vs
         # hand-rolled p2p communication (results.xlsx; SURVEY.md §6) — as one
         # flag: run both sharded arms plus serial and print all three.
         reports = [
-            _bench_one(args, s, backend)
+            _bench_one(args, s)
             for s in ("serial", "allgather", "overlap")
         ]
         for rep in reports:
@@ -1024,7 +1005,7 @@ def cmd_bench(args) -> int:
             if not args.json:
                 print("-" * 60)
         return 0
-    report = _bench_one(args, args.strategy, backend)
+    report = _bench_one(args, args.strategy)
     print(report.to_json() if args.json else report.pretty())
     return 0
 
@@ -1078,7 +1059,7 @@ def cmd_info(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpucg",
-        description="TPU-native conjugate-gradient solver",
+        description="Conjugate-gradient solver in JAX",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -1177,7 +1158,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> int:
+    from tpucg.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,9 +1,11 @@
 """Mesh construction.
 
 The reference's process model is P MPI ranks over a single interconnect
-(``MPI_Init``/``Comm_size``, ``parallel_cg.c:76-82``). tpucg's is a 1-D
-``jax.sharding.Mesh`` over TPU devices — within a slice the collectives ride
-ICI; across hosts, DCN. The same code runs on a forced multi-device CPU mesh
+(``MPI_Init``/``Comm_size``, ``parallel_cg.c:76-82``). tpucg's is a 1-D (or
+2-D) ``jax.sharding.Mesh`` over ``jax.devices()``: on the GPUs of one host
+XLA hands the collectives to NCCL over NVLink, where every card reaches
+every other at the same rate, so the mesh follows the algorithm alone (no
+topology shape). The same code runs on a forced multi-device CPU mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``) — the analog of the
 reference's oversubscribed single-host ``mpiexec -np N`` testing (report §6).
 """
@@ -28,11 +30,11 @@ def init_distributed(
     """Initialize multi-host JAX (one process per host on a pod slice).
 
     The reference's MPI_Init role (``parallel_cg.c:76``) for the multi-host
-    case: after this, ``jax.devices()`` spans every host's chips and the same
-    ``make_mesh``/``shard_map`` code runs with psum/all_gather riding ICI
-    within a slice and DCN across slices. On Cloud TPU the arguments are
-    auto-detected from the metadata server; pass them explicitly elsewhere.
-    No-op if already initialized.
+    case: after this, ``jax.devices()`` spans every process's devices and
+    the same ``make_mesh``/``shard_map`` code runs across them. Pass
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly: nothing detects a cluster. No-op if already
+    initialized.
     """
     import jax.distributed
 

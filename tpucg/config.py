@@ -12,6 +12,8 @@ from typing import Optional
 
 import jax.numpy as jnp
 
+from tpucg.kernels.dispatch import resolve_backend
+
 
 @dataclasses.dataclass(frozen=True)
 class CGConfig:
@@ -30,10 +32,11 @@ class CGConfig:
         ``"allgather"`` rebuilds the full direction vector each iteration
         (reference collective arm, ``parallel_cg.c:290-291``);
         ``"overlap"`` keeps p block-sharded and streams blocks around a
-        collective-permute ring overlapped with local matvec (the TPU-native
+        collective-permute ring overlapped with local matvec (the collective
         replacement for the reference's p2p arm, ``point-to-point_cg.c:364-394``).
-      kernel: compute-kernel backend — ``"auto"`` picks Pallas on TPU and XLA
-        elsewhere; ``"pallas"`` / ``"xla"`` force a backend.
+      kernel: compute-kernel backend — ``"auto"`` and ``"xla"`` run XLA;
+        ``"pallas"`` is refused (no operator has a Pallas kernel; see
+        ``kernels.dispatch``).
       safe_alpha: guard the ``alpha = rsold / (p . Ap)`` division against a zero
         denominator (exact initial guess). The reference would produce NaN here;
         tpucg treats it as converged instead (SURVEY.md §3.5 mandates failing
@@ -43,7 +46,7 @@ class CGConfig:
         diagonally-scaled systems at one extra O(n) multiply per lap),
         ``"block_jacobi"`` (z = blockdiag(A)^-1 r with ``pc_block_size``
         blocks, inverted once at setup and applied as ONE batched
-        (bs, bs) block GEMV per lap — the MXU-native strong
+        (bs, bs) block GEMV per lap — a batched-GEMM strong
         preconditioner; also absorbs within-block coupling, e.g. bands
         and per-node DOF blocks; dense/DIA/Poisson operators), or
         ``"poly"`` (truncated-Neumann polynomial of degree ``poly_degree`` —
@@ -74,12 +77,6 @@ class CGConfig:
         ``method="chebyshev"`` (>= 1). Convergence is only observed at
         checks, so reported iteration counts round up to a multiple of
         ``check_every``.
-      fused: whole-solve-in-one-Pallas-kernel dispatch for small
-        VMEM-resident dense systems (``kernels.fused``): "auto" (default —
-        engage below the measured crossover ``FUSED_AUTO_MAX_N`` when the
-        solve is a plain serial f32 dense CG on the Pallas backend),
-        "always" (any eligible size up to ``FUSED_MAX_N``, for A/Bs), or
-        "never".
     """
 
     tol: float = 1.0e-6
@@ -94,7 +91,6 @@ class CGConfig:
     method: str = "cg"
     s_step: int = 3
     check_every: int = 8
-    fused: str = "auto"
 
     def __post_init__(self):
         if self.strategy not in ("allgather", "overlap"):
@@ -111,10 +107,7 @@ class CGConfig:
                 "CA basis needs split M^-1-weighted towers; use "
                 "method='pipelined' for preconditioned latency hiding)"
             )
-        if self.kernel not in ("auto", "pallas", "xla"):
-            raise ValueError(f"unknown kernel backend {self.kernel!r}")
-        if self.fused not in ("auto", "always", "never"):
-            raise ValueError(f"unknown fused mode {self.fused!r}")
+        resolve_backend(self.kernel)
         if self.precondition not in (
             "none", "jacobi", "block_jacobi", "poly"
         ):

@@ -3,8 +3,8 @@
 The reference distributes A as contiguous row blocks ("row-wise block-striped
 decomposition", report §5.2; ``MPI_Scatter`` at ``parallel_cg.c:112-115``) and
 *requires* ``ROWS % P == 0`` (``parallel_cg.c:86-90``). tpucg lifts that
-restriction by zero-padding to the next multiple of P (and, on TPU, to the
-lane/sublane tile): padding A with an identity block and b/x with zeros leaves
+restriction by zero-padding to the next multiple of P (and of a row
+alignment): padding A with an identity block and b/x with zeros leaves
 the original solution untouched (the padded rows solve 1*x_pad = 0) while
 keeping every shard the same static shape — a requirement for XLA.
 """
@@ -31,7 +31,7 @@ class RowPartition:
 
     n: int
     num_shards: int
-    align: int = 8  # float32 sublane tile; harmless on CPU
+    align: int = 8  # rows per shard are a multiple of this
 
     @property
     def n_padded(self) -> int:

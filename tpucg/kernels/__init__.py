@@ -1,36 +1,27 @@
-"""Compute kernels (Pallas TPU + XLA fallbacks).
+"""Compute kernels.
 
 These replace the reference's L1 C loops (``serialConjugate.c:109-177``):
-``matVec`` -> tiled Pallas GEMV, ``vecVec`` -> fused reduction kernel,
-``scalarVec``/``vecAdd``/``vecSub`` -> a single fused CG-update kernel (the
-reference's six separate O(n) passes per iteration collapse to one read of
-each vector — HBM traffic, not FLOPs, is the TPU bottleneck).
+``matVec`` -> XLA's dot at HIGHEST precision, ``vecVec`` -> an exact dot,
+``scalarVec``/``vecAdd``/``vecSub`` -> one jnp update that XLA fuses into a
+single pass. Sparse products live in ``spmv`` (ELL, DIA, BSR) and
+``gather_spmv`` (WELL).
 """
 
 from tpucg.kernels.dispatch import resolve_backend
-from tpucg.kernels.matvec import matvec, matvec_pallas, matvec_xla, MATVEC_ALIGN
-from tpucg.kernels.blas1 import (
-    dot_pallas,
-    dot_xla,
-    fused_update,
-    fused_update_pallas,
+from tpucg.kernels.matvec import matvec_xla
+from tpucg.kernels.blas1 import dot_xla, fused_update
+from tpucg.kernels.spmv import (
+    bsr_ell_spmv,
+    dia_spmv,
+    ell_spmv,
 )
-from tpucg.kernels.spmv import bsr_ell_spmv, dia_spmv, ell_spmv
-from tpucg.kernels.stencil import poisson3d_pallas, stencil_supported
 
 __all__ = [
     "resolve_backend",
-    "matvec",
-    "matvec_pallas",
     "matvec_xla",
-    "MATVEC_ALIGN",
-    "dot_pallas",
     "dot_xla",
     "fused_update",
-    "fused_update_pallas",
     "ell_spmv",
     "bsr_ell_spmv",
     "dia_spmv",
-    "poisson3d_pallas",
-    "stencil_supported",
 ]

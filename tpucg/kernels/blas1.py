@@ -1,35 +1,23 @@
-"""BLAS-1 level kernels: dot products and the fused CG vector update.
+"""BLAS-1 level operations: dot products and the fused CG vector update.
 
 The reference performs the per-iteration vector work as six separate O(n)
 passes (``scalarVec`` + ``vecAdd`` for x, ``scalarVec`` + ``vecSub`` for r, a
-``vecVec`` for beta — ``serialConjugate.c:221-234``). On TPU these are pure
-HBM-bandwidth ops, so tpucg fuses them into ONE kernel that reads x, r, p, Ap
-once and produces x' = x + alpha*p, r' = r - alpha*Ap, and beta = r'.r' in a
-single streaming pass: 4 vector reads + 2 writes instead of 10 reads + 5
-writes. (Under jit, XLA performs a similar fusion for the jnp fallback; the
-Pallas kernel makes the schedule explicit and is the bench-verified default on
-TPU.)
+``vecVec`` for beta — ``serialConjugate.c:221-234``). Written as one jnp
+expression inside the jitted loop, XLA fuses the x/r update and r.r into a
+single streaming pass (PERF.md records the fusions per lap).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpucg.kernels.dispatch import interpret_mode
-
-_LANE = 128
 
 
 def dot_xla(u: jax.Array, v: jax.Array) -> jax.Array:
-    """Exact vector dot (reference ``vecVec``). precision=HIGHEST keeps
-    XLA from routing the product through the MXU's 1-pass bf16 truncation —
-    CG's alpha/beta scalars need full-precision products (see matvec_xla).
-    Accumulates in at least f32 (f64 solves keep f64)."""
+    """Exact vector dot (reference ``vecVec``). precision=HIGHEST keeps the
+    product out of TF32 — CG's alpha/beta scalars need full-precision
+    products (see matvec_xla). Accumulates in at least f32 (f64 solves keep
+    f64)."""
     pet = jnp.promote_types(u.dtype, jnp.float32)
     return jnp.dot(
         u, v,
@@ -38,108 +26,8 @@ def dot_xla(u: jax.Array, v: jax.Array) -> jax.Array:
     )
 
 
-def _chunk(n: int, cap: int = 1 << 17) -> int:
-    """Largest multiple-of-128 divisor of n, at most cap."""
-    if n % _LANE:
-        raise ValueError(f"vector length {n} must be a multiple of {_LANE}")
-    c = min(n, cap)
-    c -= c % _LANE
-    while c >= _LANE:
-        if n % c == 0:
-            return c
-        c -= _LANE
-    return _LANE
-
-
-def _dot_kernel(u_ref, v_ref, out_ref):
-    i = pl.program_id(0)
-    part = jnp.sum(u_ref[...] * v_ref[...])
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[0, 0] = part
-
-    @pl.when(i != 0)
-    def _():
-        out_ref[0, 0] += part
-
-
-@jax.jit
-def dot_pallas(u: jax.Array, v: jax.Array) -> jax.Array:
-    """f32 dot product as a streaming Pallas reduction (reference ``vecVec``,
-    ``serialConjugate.c:145-155``). Grid programs run sequentially on TPU, so
-    accumulating into the (1,1) SMEM output is race-free. Vectors are carried
-    as (1, n) rows — see the layout note in ``_matvec_kernel``."""
-    (n,) = u.shape
-    c = _chunk(n)
-    out = pl.pallas_call(
-        _dot_kernel,
-        grid=(n // c,),
-        in_specs=[
-            pl.BlockSpec((1, c), lambda i: (0, i)),
-            pl.BlockSpec((1, c), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        interpret=interpret_mode(),
-    )(u.reshape(1, n), v.reshape(1, n))
-    return out[0, 0]
-
-
-def _fused_update_kernel(alpha_ref, x_ref, r_ref, p_ref, ap_ref,
-                         xo_ref, ro_ref, beta_ref):
-    i = pl.program_id(0)
-    alpha = alpha_ref[0, 0]
-    xn = x_ref[...] + alpha * p_ref[...]
-    rn = r_ref[...] - alpha * ap_ref[...]
-    xo_ref[...] = xn
-    ro_ref[...] = rn
-    part = jnp.sum(rn * rn)
-
-    @pl.when(i == 0)
-    def _():
-        beta_ref[0, 0] = part
-
-    @pl.when(i != 0)
-    def _():
-        beta_ref[0, 0] += part
-
-
-@jax.jit
-def fused_update_pallas(x, r, p, ap, alpha):
-    """One-pass x/r update + residual norm: returns (x', r', beta = r'.r')."""
-    (n,) = x.shape
-    c = _chunk(n)
-    alpha2d = jnp.reshape(alpha.astype(jnp.float32), (1, 1))
-    vec_spec = lambda: pl.BlockSpec((1, c), lambda i: (0, i))
-    as_row = lambda v: v.reshape(1, n)
-    xo, ro, beta = pl.pallas_call(
-        _fused_update_kernel,
-        grid=(n // c,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            vec_spec(), vec_spec(), vec_spec(), vec_spec(),
-        ],
-        out_specs=(
-            vec_spec(), vec_spec(),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        ),
-        interpret=interpret_mode(),
-    )(alpha2d, as_row(x), as_row(r), as_row(p), as_row(ap))
-    return xo.reshape(n), ro.reshape(n), beta[0, 0]
-
-
-def fused_update(x, r, p, ap, alpha, backend: str = "xla"):
-    """Dispatching wrapper for the fused CG vector update."""
-    if backend == "pallas":
-        return fused_update_pallas(x, r, p, ap, alpha)
+def fused_update(x, r, p, ap, alpha):
+    """The CG vector update: returns (x + alpha p, r - alpha Ap, r'.r')."""
     xn = x + alpha * p
     rn = r - alpha * ap
     return xn, rn, dot_xla(rn, rn)

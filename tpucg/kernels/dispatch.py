@@ -1,27 +1,23 @@
-"""Kernel backend resolution."""
+"""Kernel backend resolution.
+
+Every operator runs on XLA: no Pallas kernel is left (PERF.md records the
+DIA kernel that was written for the GPU and removed because the solve was
+no faster with it). ``kernel="pallas"`` is refused rather than silently
+served by something else.
+"""
 
 from __future__ import annotations
 
-import os
-
-import jax
-
-# Set TPUCG_INTERPRET=1 to run Pallas kernels in interpreter mode (used by the
-# CPU test suite so kernel code paths are exercised without TPU hardware).
-def interpret_mode() -> bool:
-    if os.environ.get("TPUCG_INTERPRET", "") == "1":
-        return True
-    return jax.default_backend() != "tpu"
-
 
 def resolve_backend(kernel: str = "auto") -> str:
-    """Map CGConfig.kernel to a concrete backend for this process."""
-    if kernel in ("pallas", "xla"):
-        return kernel
-    if kernel != "auto":
-        raise ValueError(f"unknown kernel backend {kernel!r}")
-    if jax.default_backend() == "tpu":
-        return "pallas"
-    # Off-TPU, interpreted Pallas is orders of magnitude slower than XLA;
-    # tests opt back in via TPUCG_INTERPRET / kernel="pallas".
-    return "xla"
+    """Map CGConfig.kernel to the backend: ``"xla"`` for ``"auto"`` and
+    ``"xla"``; a ValueError for ``"pallas"`` (no operator has a Pallas
+    kernel) and for anything else."""
+    if kernel in ("auto", "xla"):
+        return "xla"
+    if kernel == "pallas":
+        raise ValueError(
+            "kernel='pallas': no operator has a Pallas kernel; use "
+            "kernel='xla' or 'auto'"
+        )
+    raise ValueError(f"unknown kernel backend {kernel!r}")

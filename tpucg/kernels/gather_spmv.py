@@ -1,42 +1,13 @@
-"""Irregular-sparse SpMV on TPU: the WELL (windowed gather-ELL) kernel.
+"""Irregular-sparse SpMV over the WELL (windowed gather-ELL) format.
 
-Design (see ``tpucg.sparse.well`` for the format): the only fast
-data-dependent addressing on TPU is whole-row DMA gather and the in-vreg
-lane shuffle, so the kernel is a pure stream —
-
-  1. ``xg = x2[wrow]``: one XLA row-gather DMA per 8-sublane CHUNK, done
-     OUTSIDE the kernel (XLA's gather-of-rows lowers to batched DMA
-     descriptors); chunks are window-uniform by construction, so this is
-     8x less gather traffic than a per-sublane gather (measured 61 us of
-     a 162 us matvec at n=100k in the per-sublane v1 layout);
-  2. per (BS, 128) stream block: broadcast each gathered row to its 8
-     sublanes, then ``P = vals * take_along_axis(xgr, lidx)`` — the Mosaic
-     lane-gather (a VPU shuffle, ~17 VPU ops/slot — the measured compute
-     floor of the whole kernel), one multiply;
-  3. output routing: a (BG, BS) one-hot matmul on the MXU reduces the
-     block's sublane rows into their output group rows exactly (one-hot
-     weights are 0/1; precision=HIGHEST keeps the f32 products exact, the
-     bf16-truncation guard from CLAUDE.md);
-  4. consecutive blocks of the same super-group accumulate into the same
-     revisited output block (flushed to HBM once per super-group).
-
-No scalar gather, no scatter, no data-dependent shapes. The measured
-alternative (scalar-gather ELL) runs ~0.1 Gnnz/s on v5e; this kernel
-streams ~5.6 bytes per slot (4 value + 1 lane index + 0.5 gathered window).
+See ``tpucg.sparse.well`` for the format: nonzeros packed into 128-slot
+sublane rows whose columns share one 128-wide window of x, grouped into
+8-row chunks that share a window row. The product is a row gather of the
+windows, a lane gather inside each window, a multiply, and a scatter-add of
+each sublane row into its output group row.
 
 Reference analog: the hot-kernel contract of ``serialConjugate.c:109-120``
 (do the platform's matvec right), extended to irregular sparsity.
-
-Multi-RHS (round 4, measured negative result worth recording): batched
-k-RHS applies ride ``vmap`` of this kernel (``WellOperator.matvec_multi``),
-NOT a hand-fused SpMM. A fused variant was built (matrix streamed once,
-(k*128)-wide window gathers, VMEM scratch + one wide one-hot matmul) and
-timed on chip against the vmapped form: it lost at every size tried —
-450-488 us vs 244-371 us at n=100k k=8, 614 vs 253 us/RHS at n=1M k=8.
-Mosaic's kernel batching adds the lane axis as the MINOR grid dimension
-and skips re-fetching blocks whose index map is unchanged between
-consecutive grid steps, so the vals/lidx stream already amortizes across
-lanes, with pipeline overlap the scratch variant could not match.
 """
 
 from __future__ import annotations
@@ -45,231 +16,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpucg.kernels.dispatch import interpret_mode
 
 LANE = 128
 CHUNK = 8
-
-
-def _well_kernel(BG, sgb_ref, vals_ref, lidx_ref, gidl_ref, xg_ref, y_ref):
-    i = pl.program_id(0)
-    sg = sgb_ref[i]
-    first = jnp.logical_or(i == 0, sgb_ref[jnp.maximum(i - 1, 0)] != sg)
-    BS = vals_ref.shape[0]
-    # xg arrives one row per 8-sublane chunk; broadcast to sublane rows
-    # (a relayout-free leading-dims expansion).
-    xgr = jnp.broadcast_to(
-        xg_ref[...][:, None, :], (BS // CHUNK, CHUNK, LANE)
-    ).reshape(BS, LANE)
-    li = lidx_ref[...].astype(jnp.int32)
-    # astype: f32 products over (possibly bfloat16-stored) values — a
-    # no-op for f32 storage, an in-vreg upcast for bf16 (3.5 B/slot
-    # streamed instead of 5.5).
-    P = vals_ref[...].astype(jnp.float32) * jnp.take_along_axis(
-        xgr, li, axis=1
-    )
-    # gidl arrives (1, 1, BS): Mosaic requires the second-to-last block dim
-    # be 8-aligned or whole, so the per-block row rides a leading axis.
-    onehot = (
-        jax.lax.broadcasted_iota(jnp.int32, (BG, BS), 0) == gidl_ref[0]
-    ).astype(jnp.float32)
-    contrib = jax.lax.dot_general(
-        onehot,
-        P,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-    @pl.when(first)
-    def _():
-        y_ref[...] = contrib
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        y_ref[...] = y_ref[...] + contrib
-
-
-@functools.partial(jax.jit, static_argnames=("bg", "nsg"))
-def well_spmv(
-    vals: jax.Array,
-    lidx: jax.Array,
-    gidl: jax.Array,
-    wrow: jax.Array,
-    sgb: jax.Array,
-    x2: jax.Array,
-    bg: int,
-    nsg: int,
-) -> jax.Array:
-    """Fused WELL SpMV (Pallas). Returns y2 (nsg*bg, 128) float32."""
-    NB, BS = gidl.shape
-    xg = jnp.take(x2, wrow, axis=0)  # (NS/8, 128), one row per chunk
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NB,),
-        in_specs=[
-            pl.BlockSpec((BS, LANE), lambda i, sgb_ref: (i, 0)),
-            pl.BlockSpec((BS, LANE), lambda i, sgb_ref: (i, 0)),
-            pl.BlockSpec((1, 1, BS), lambda i, sgb_ref: (i, 0, 0)),
-            pl.BlockSpec((BS // CHUNK, LANE), lambda i, sgb_ref: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec(
-            (bg, LANE), lambda i, sgb_ref: (sgb_ref[i], 0)
-        ),
-    )
-    return pl.pallas_call(
-        functools.partial(_well_kernel, bg),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nsg * bg, LANE), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * NB * BS * LANE,
-            bytes_accessed=(vals.dtype.itemsize + 2) * NB * BS * LANE,
-            transcendentals=0,
-        ),
-        # Large stream blocks (BS=4096 is the tuned default at scale)
-        # exceed the 16 MB default scoped-VMEM cap once double-buffered.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 2 ** 20
-        ),
-        interpret=interpret_mode(),
-    )(sgb, vals, lidx, gidl.reshape(NB, 1, BS), xg)
-
-
-def _well_kernel_fused(BG, CPB, sgb_ref, wrow_ref, vals_ref, lidx_ref,
-                       gidl_ref, x2_ref, y_ref, xg_sc, sems):
-    """The round-5 fused-window-gather experiment (VERDICT r4 #6): the
-    x-window row gather moves INSIDE the kernel as per-chunk async DMA
-    from HBM into a double-buffered VMEM scratch, issued one block ahead
-    — collapsing the separate descriptor-bound XLA gather dispatch the
-    BASELINE floor analysis blames for the small-n gap, and overlapping
-    the gather with value streaming. CPB = chunks per block (BS//8).
-
-    MEASURED NEGATIVE (on chip 2026-08-21, benchmarks/well_fused_ab.py):
-    loses 2-3x to the two-dispatch structure at every size — 167 vs
-    79.8 us at geometric n=100k, 703 vs 234 us at FEM n=300k, 1571 vs
-    567 us at geometric n=1M — a flat ~28% of the plain stream model,
-    i.e. DMA-ISSUE-bound: the serial fori_loop of per-chunk 512-B row
-    copies pays one descriptor per chunk, where XLA's standalone gather
-    batches all descriptors into one large DMA (228-801 GB/s measured).
-    The two-dispatch form is the measured floor; this kernel is kept as
-    the published record (BASELINE.md round-5 amendment)."""
-    i = pl.program_id(0)
-    nb = pl.num_programs(0)
-    sg = sgb_ref[i]
-    first = jnp.logical_or(i == 0, sgb_ref[jnp.maximum(i - 1, 0)] != sg)
-    slot = jax.lax.rem(i, 2)
-    nslot = jax.lax.rem(i + 1, 2)
-    BS = vals_ref.shape[0]
-
-    def issue(block, s):
-        base = block * CPB
-
-        def body(c, carry):
-            pltpu.make_async_copy(
-                x2_ref.at[pl.ds(wrow_ref[base + c], 1), :],
-                xg_sc.at[s, pl.ds(c, 1), :],
-                sems.at[s],
-            ).start()
-            return carry
-
-        jax.lax.fori_loop(0, CPB, body, 0)
-
-    @pl.when(i == 0)
-    def _():
-        issue(0, 0)
-
-    @pl.when(i + 1 < nb)
-    def _():
-        issue(i + 1, nslot)
-
-    def wait_body(c, carry):
-        pltpu.make_async_copy(
-            x2_ref.at[pl.ds(0, 1), :],
-            xg_sc.at[slot, pl.ds(c, 1), :],
-            sems.at[slot],
-        ).wait()
-        return carry
-
-    jax.lax.fori_loop(0, CPB, wait_body, 0)
-
-    xgr = jnp.broadcast_to(
-        xg_sc[slot][:, None, :], (CPB, CHUNK, LANE)
-    ).reshape(BS, LANE)
-    li = lidx_ref[...].astype(jnp.int32)
-    P = vals_ref[...].astype(jnp.float32) * jnp.take_along_axis(
-        xgr, li, axis=1
-    )
-    onehot = (
-        jax.lax.broadcasted_iota(jnp.int32, (BG, BS), 0) == gidl_ref[0]
-    ).astype(jnp.float32)
-    contrib = jax.lax.dot_general(
-        onehot,
-        P,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-    @pl.when(first)
-    def _():
-        y_ref[...] = contrib
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        y_ref[...] = y_ref[...] + contrib
-
-
-@functools.partial(jax.jit, static_argnames=("bg", "nsg"))
-def well_spmv_fused_gather(
-    vals: jax.Array,
-    lidx: jax.Array,
-    gidl: jax.Array,
-    wrow: jax.Array,
-    sgb: jax.Array,
-    x2: jax.Array,
-    bg: int,
-    nsg: int,
-) -> jax.Array:
-    """WELL SpMV with the window gather fused into the kernel (in-kernel
-    double-buffered row DMA; see ``_well_kernel_fused``). Semantics are
-    identical to :func:`well_spmv`; this is the measured A/B arm for the
-    two-dispatch structure (run `benchmarks/probe_gather.py` on chip)."""
-    NB, BS = gidl.shape
-    CPB = BS // CHUNK
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(NB,),
-        in_specs=[
-            pl.BlockSpec((BS, LANE), lambda i, s_ref, w_ref: (i, 0)),
-            pl.BlockSpec((BS, LANE), lambda i, s_ref, w_ref: (i, 0)),
-            pl.BlockSpec((1, 1, BS), lambda i, s_ref, w_ref: (i, 0, 0)),
-            pl.BlockSpec(memory_space=pltpu.ANY),   # x2 stays in HBM
-        ],
-        out_specs=pl.BlockSpec(
-            (bg, LANE), lambda i, s_ref, w_ref: (s_ref[i], 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, CPB, LANE), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_well_kernel_fused, bg, CPB),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nsg * bg, LANE), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * NB * BS * LANE,
-            bytes_accessed=(vals.dtype.itemsize + 2) * NB * BS * LANE,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 2 ** 20
-        ),
-        interpret=interpret_mode(),
-    )(sgb, wrow, vals, lidx, gidl.reshape(NB, 1, BS), x2)
 
 
 @functools.partial(jax.jit, static_argnames=("bg", "nsg"))
@@ -283,12 +32,11 @@ def well_spmv_xla(
     bg: int,
     nsg: int,
 ) -> jax.Array:
-    """XLA fallback with identical semantics (off-TPU / dtype-generic path).
+    """WELL SpMV. Returns y2 (nsg*bg, 128).
 
-    Uses gather + a scatter-add segment sum — fine on CPU, NOT
-    TPU-compilable (the fused lane-gather + sorted-scatter aborts the TPU
-    compiler), which is exactly why the Pallas kernel exists;
-    ``WellOperator.matvec`` guards this path off-chip-only.
+    The segment sum is XLA's scatter-add, which the GPU runs with atomics:
+    its rounding changes from run to run, so compare results with a
+    tolerance, never bit for bit.
     """
     NB, BS = gidl.shape
     xg = jnp.repeat(jnp.take(x2, wrow, axis=0), CHUNK, axis=0)

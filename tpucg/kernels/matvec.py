@@ -1,12 +1,10 @@
 """Dense GEMV: y = A @ x.
 
-This is the hot kernel of CG — O(n^2) per iteration, every iteration
+This is the hot kernel of dense CG — O(n^2) per iteration, every iteration
 (reference: ``matVec``, ``serialConjugate.c:109-120`` / ``parallel_cg.c:172-184``).
-On TPU it is HBM-bandwidth bound (A is read once per call; FLOP:byte = 0.5 for
-f32), so the kernel's job is to stream A at speed-of-light while the VPU/MXU
-does the multiply-accumulate. The Pallas version tiles A into (TILE_M, TILE_K)
-VMEM blocks with the grid ordered so each output block stays resident in VMEM
-across the K-reduction, and x is broadcast once per row-stripe.
+It is bound by memory bandwidth (A is read once per call; FLOP:byte = 0.5 for
+f32) and has nothing to fuse, so it is XLA's dot, which the GPU backend hands
+to cuBLAS.
 
 Shapes may be rectangular (rows, cols) — the sharded solver calls this on
 row-blocks A_blk (n/P, n) (reference: ``parallel_cg.c:292``).
@@ -14,29 +12,17 @@ row-blocks A_blk (n/P, n) (reference: ``parallel_cg.c:292``).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-from tpucg.kernels.dispatch import interpret_mode
-
-# Alignment contract for the Pallas path: rows % 128 == 0 (rows become the
-# lane dim of the (1, rows) output) and cols % 128 == 0 (lane dim of A).
-# Operators pad once at construction to meet it.
-MATVEC_ALIGN = (128, 128)
 
 
 def matvec_xla(A: jax.Array, x: jax.Array) -> jax.Array:
-    """XLA fallback / oracle: jnp dot with f32 accumulation.
+    """jnp dot with at least f32 accumulation (bf16 storage upcasts).
 
-    precision=HIGHEST is load-bearing: the TPU MXU truncates f32 operands to
-    bf16 by default (1-pass), which costs ~3 decimal digits per product and
-    stalls CG's residual around 1e-3-1e-4 — observed as the reference's 4x4
-    golden system failing to reach tol=1e-6 on a real v5e. HIGHEST selects the
-    multi-pass f32 algorithm; GEMV is HBM-bound so the extra MXU passes are
-    free.
+    precision=HIGHEST is load-bearing: without it an f32 product may run in
+    TF32, which keeps about three decimal digits per product and stalls
+    CG's residual around 1e-3-1e-4 — the reference's 4x4 golden system then
+    fails to reach tol=1e-6.
     """
     pet = jnp.promote_types(jnp.promote_types(A.dtype, x.dtype), jnp.float32)
     return jnp.dot(
@@ -44,104 +30,3 @@ def matvec_xla(A: jax.Array, x: jax.Array) -> jax.Array:
         preferred_element_type=pet,
         precision=jax.lax.Precision.HIGHEST,
     )
-
-
-def _pick_tiles(rows: int, cols: int) -> tuple[int, int]:
-    """Aligned tiles that divide (rows, cols) and fit VMEM comfortably.
-
-    On-chip autotune at n=8192 (v5e): wide K-tiles win — (256, 4096) streams
-    at 93% of HBM roofline vs 90% for (512, 1024); longer contiguous rows per
-    DMA beat taller blocks. Budget: A tile <= 4 MB so double-buffered
-    HBM->VMEM streaming (2 tiles in flight) plus x/y blocks stay well under
-    the ~16 MB/core VMEM floor.
-    """
-
-    def divisors_down(n: int, start: int, step: int):
-        t = min(start, n)
-        t -= t % step
-        while t >= step:
-            if n % t == 0:
-                yield t
-            t -= step
-
-    # Given the MATVEC_ALIGN precondition (rows/cols % 128 == 0), the first
-    # tk always admits tm=256 (4 MB at tk=4096) or tm=128 (2 MB). Small-n
-    # note: below n~1024 the measured roofline fraction (~45-70%) is bounded
-    # by the ~1.5 us per-call launch floor, not tiling — an in-process A/B
-    # of tm in {128, 256} at n=1024 measured dead even (7.4 us both), and at
-    # n=512 every tiling including XLA sits at 2.4-3.1 us vs the 1.3 us
-    # streaming ideal. Inside a jitted CG solve XLA keeps small A
-    # VMEM-resident across laps, so the solve itself is unaffected.
-    for tk in divisors_down(cols, 4096, 128):
-        for tm in (256, 128):
-            if rows % tm == 0 and tm * tk * 4 <= 4 * 1024 * 1024:
-                return tm, tk
-    raise ValueError(f"no aligned tiling for shape ({rows}, {cols})")
-
-
-def _matvec_kernel(a_ref, x_ref, y_ref):
-    # Vectors are carried as (1, n) rows: 1-D f32 arrays get an XLA layout
-    # (T(1024) tiling) that Mosaic's block layouts cannot always match —
-    # observed as a compile failure on real v5e — while 2-D (sublane, lane)
-    # blocks are the native form.
-    #
-    # The multiply-accumulate runs on the VPU (broadcast multiply + lane
-    # reduction), NOT the MXU: an MXU dot truncates f32 operands to bf16,
-    # which breaks the float32 CG contract (the reference's 4x4 golden stops
-    # converging at tol=1e-6). GEMV at FLOP:byte = 0.5 is HBM-bound, so the
-    # VPU's exact-f32 FMA throughput is already above the streaming rate.
-    j = pl.program_id(1)
-    partial = jnp.sum(
-        a_ref[...].astype(jnp.float32) * x_ref[...], axis=1, keepdims=True
-    )  # (tm, tk) * (1, tk) -> row-sum -> (tm, 1); bf16 A upcast in-register
-
-    @pl.when(j == 0)
-    def _():
-        y_ref[...] = partial
-
-    @pl.when(j != 0)
-    def _():
-        y_ref[...] += partial
-
-
-@functools.partial(jax.jit, static_argnames=("tiles",))
-def matvec_pallas(A: jax.Array, x: jax.Array, tiles=None) -> jax.Array:
-    """Tiled Pallas GEMV. Requires MATVEC_ALIGN-aligned shapes.
-
-    A may be float32 or bfloat16 (half the HBM traffic -> ~2x faster at the
-    same roofline fraction; an extension beyond the reference's all-f32
-    contract). Accumulation is always float32.
-    """
-    rows, cols = A.shape
-    if rows % MATVEC_ALIGN[0] or cols % MATVEC_ALIGN[1]:
-        raise ValueError(
-            f"matvec_pallas needs shapes aligned to {MATVEC_ALIGN}, got {A.shape}; "
-            "pad via tpucg.io.partitioner or use matvec_xla"
-        )
-    if A.dtype not in (jnp.float32, jnp.bfloat16):
-        raise ValueError(f"matvec_pallas supports f32/bf16 A, got {A.dtype}")
-    tm, tk = tiles if tiles is not None else _pick_tiles(rows, cols)
-    grid = (rows // tm, cols // tk)
-    y2d = pl.pallas_call(
-        _matvec_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda i, j: (i, j)),
-            pl.BlockSpec((1, tk), lambda i, j: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((tm, 1), lambda i, j: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, 1), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * rows * cols,
-            bytes_accessed=A.size * A.dtype.itemsize + (rows + cols) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(A, x.astype(jnp.float32).reshape(1, cols))
-    return y2d.reshape(rows)
-
-
-def matvec(A: jax.Array, x: jax.Array, backend: str = "xla") -> jax.Array:
-    if backend == "pallas":
-        return matvec_pallas(A, x)
-    return matvec_xla(A, x)

@@ -1,23 +1,17 @@
-"""Sparse matrix-vector products on TPU.
+"""Sparse matrix-vector products.
 
-The device format is ELLPACK (``tpucg.sparse.formats.EllMatrix``): values and
-column indices as dense (n, L) arrays. SpMV is then a gather of x by the index
-matrix followed by an elementwise multiply and row-sum — fully static shapes,
-which is what XLA's TPU tiler needs (CSR's ragged rows would force
-data-dependent control flow). For stencil operators (Poisson) prefer the
-matrix-free ``PoissonOperator``, which needs no gather at all.
+The general device format is ELLPACK (``tpucg.sparse.formats.EllMatrix``):
+values and column indices as dense (n, L) arrays. SpMV is then a gather of x
+by the index matrix followed by an elementwise multiply and row-sum — fully
+static shapes. Banded matrices take DIA (one shifted multiply-add per stored
+diagonal, no gather); stencil operators (Poisson) take the matrix-free
+``PoissonOperator``, which needs no stored matrix at all.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpucg.kernels.dispatch import interpret_mode
 
 
 def ell_spmv(values: jax.Array, indices: jax.Array, x: jax.Array) -> jax.Array:
@@ -40,319 +34,54 @@ def _shift_flat(x: jax.Array, off: int) -> jax.Array:
     return jnp.concatenate([jnp.zeros((k,), x.dtype), x[:-k]])
 
 
+def _acc_dtype(data: jax.Array, x: jax.Array):
+    # bf16 storage accumulates in f32; f64 solves stay f64.
+    return jnp.promote_types(jnp.promote_types(data.dtype, x.dtype),
+                             jnp.float32)
+
+
 def dia_spmv(
     data: jax.Array, offsets: tuple, x: jax.Array
 ) -> jax.Array:
     """DIA SpMV: y[i] = sum_d data[d, i] * x[i + offsets[d]].
 
-    ``offsets`` is a static tuple, so each diagonal lowers to a statically
-    shifted (pad + slice) multiply-add — pure VPU streaming, no gather. This
-    is the fast path for banded matrices on TPU (the scalar-gather ELL SpMV
-    measures ~240x slower for the 7-point Poisson at n=64^3).
+    ``data`` is the canonical (ndiag, n) layout; ``offsets`` is a static
+    tuple, so each diagonal lowers to a statically shifted (pad + slice)
+    multiply-add — no gather. XLA fuses the shifts into one pass.
     """
-    y = jnp.zeros_like(x)
+    acc = _acc_dtype(data, x)
+    y = jnp.zeros(x.shape, acc)
     for d, off in enumerate(offsets):
-        y = y + data[d] * _shift_flat(x, int(off))
+        y = y + data[d].astype(acc) * _shift_flat(x, int(off)).astype(acc)
     return y
 
 
-# ---------------------------------------------------------------------------
-# Pallas DIA kernel
-#
-# The XLA lowering of ``dia_spmv`` materializes one shifted HBM temporary per
-# diagonal (pad + concat), turning the 9n-float streaming problem (ndiag=7
-# diagonals + x read + y write) into ~3x the traffic plus kernel-launch
-# overhead per diagonal — measured at 90.7 us for m=64 Poisson on v5e where
-# the streaming roofline is ~11.5 us (VERDICT round 1, weak 2). This kernel
-# does the whole shift-and-add in ONE fused pass:
-#
-# - the DIA data is pre-packed ROW-INTERLEAVED (``dia_interleave``): sublane
-#   row r carries all ndiag diagonals' lane-blocks for flat rows
-#   [r*128, (r+1)*128) side by side, so each grid step streams ONE contiguous
-#   (block, ndiag*128) slab — the diag-major (ndiag, n) layout's strided
-#   per-diagonal DMAs measured only 56% of HBM speed-of-light, the
-#   interleaved slab ~100%;
-# - the vector lives whole in VMEM in its natural (rows, 128) tiling with
-#   zero guard rows staged above and below (VMEM->VMEM, no HBM traffic), and
-#   each diagonal's shifted read decomposes into a dynamic sublane window
-#   (offset // 128 rows away) plus a static lane rotation (offset % 128,
-#   Mosaic-native ``pltpu.roll``) — no gather, no HBM temporaries.
-#
-# Measured (v5e, m=64 Poisson, n=262144): 12.9 us = 89% of the streaming
-# roofline, 7x the round-1 XLA shift-and-add.
-# ---------------------------------------------------------------------------
-
-LANE = 128
-# Per-array VMEM ceiling (v5e ~16 MB/array for the f32 layouts we use, same
-# budget as kernels.stencil): the full vector + guard rows must stay resident.
-_DIA_X_BYTES_CAP = 12 * 2 ** 20
+def dia_halo_width(offsets: tuple) -> int:
+    """Elements each neighbour contributes to a row block's DIA product:
+    the band's reach (at least 1, so the ppermute ring always has a
+    payload)."""
+    return max(1, max(abs(int(o)) for o in offsets))
 
 
-def dia_supported(n: int, offsets: tuple) -> bool:
-    """Pallas DIA applies when the flat length is lane-tileable, the band
-    reach fits the guard-row budget, and vector + guards fit VMEM."""
-    if n % LANE or not offsets:
-        return False
-    maxo = max(abs(int(o)) for o in offsets)
-    pad_rows = -(-maxo // LANE)  # ceil
-    rows = n // LANE
-    if 4 * (rows + 2 * pad_rows) * LANE > _DIA_X_BYTES_CAP:
-        return False
-    # Each diagonal unrolls to a handful of VPU ops; keep the unroll sane.
-    return len(offsets) <= 64
-
-
-def dia_interleave(data) -> "jax.Array":
-    """Pack (ndiag, n) DIA data into the kernel's (n//128, ndiag*128) layout:
-    row r holds diagonal d's lanes at columns [d*128, (d+1)*128)."""
-    import numpy as np
-
-    data = np.asarray(data)
-    ndiag, n = data.shape
-    rows = n // LANE
-    return np.ascontiguousarray(
-        np.transpose(
-            data.reshape(ndiag, rows, LANE), (1, 0, 2)
-        ).reshape(rows, ndiag * LANE)
-    )
-
-
-def dia_deinterleave(data_il) -> "jax.Array":
-    """Inverse of ``dia_interleave``: (n//128, ndiag*128) back to the
-    canonical (ndiag, n). Kept beside the packer so the two transposes can
-    never drift apart."""
-    import numpy as np
-
-    data_il = np.asarray(data_il)
-    rows = data_il.shape[0]
-    ndiag = data_il.shape[1] // LANE
-    return np.ascontiguousarray(
-        np.transpose(
-            data_il.reshape(rows, ndiag, LANE), (1, 0, 2)
-        ).reshape(ndiag, rows * LANE)
-    )
-
-
-def dia_spmv_interleaved_xla(
-    data_il: jax.Array, offsets: tuple, x: jax.Array
-) -> jax.Array:
-    """XLA shift-and-add over the interleaved layout (the off-TPU fallback
-    for operators that packed their data for the Pallas kernel)."""
-    rows = data_il.shape[0]
-    n = rows * LANE
-    y = jnp.zeros_like(x)
-    for d, off in enumerate(offsets):
-        diag = jax.lax.dynamic_slice(
-            data_il, (0, d * LANE), (rows, LANE)
-        ).reshape(n)
-        y = y + diag * _shift_flat(x, int(off))
-    return y
-
-
-def _dia_kernel(offsets, block_rows, pad_rows, *refs):
-    """Shared body for the zero-guard and halo-guard variants: with 4 refs
-    (data, x, y, scratch) the guards are zeros (serial operator); with 6 the
-    guard rows come from halo inputs (the distributed band exchange,
-    ``dia_spmv_halo_pallas``)."""
-    if len(refs) == 4:
-        data_ref, x_ref, y_ref, xp_ref = refs
-        lo_ref = hi_ref = None
-    else:
-        data_ref, x_ref, lo_ref, hi_ref, y_ref, xp_ref = refs
-    i = pl.program_id(0)
-    rows = x_ref.shape[0]
-
-    # Step 0: stage x into the guard-padded VMEM scratch (VMEM->VMEM copy,
-    # no HBM traffic); the scratch persists across grid steps.
-    @pl.when(i == 0)
-    def _():
-        if pad_rows:
-            if lo_ref is None:
-                xp_ref[0:pad_rows, :] = jnp.zeros(
-                    (pad_rows, LANE), jnp.float32
-                )
-                xp_ref[pl.ds(pad_rows + rows, pad_rows), :] = jnp.zeros(
-                    (pad_rows, LANE), jnp.float32
-                )
-            else:
-                xp_ref[0:pad_rows, :] = lo_ref[...]
-                xp_ref[pl.ds(pad_rows + rows, pad_rows), :] = hi_ref[...]
-        xp_ref[pl.ds(pad_rows, rows), :] = x_ref[...]
-
-    acc = jnp.zeros((block_rows, LANE), jnp.float32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (block_rows, LANE), 1)
-    for d, off in enumerate(offsets):
-        qr, qc = divmod(int(off), LANE)  # static per diagonal; 0 <= qc < 128
-        sr = i * block_rows + pad_rows + qr
-        if qc == 0:
-            shifted = xp_ref[pl.ds(sr, block_rows), :]
-        else:
-            # Flat shift by off = qr*128 + qc: lane c < 128-qc reads row
-            # sr + j at lane c + qc; lane c >= 128-qc reads row sr + j + 1 at
-            # lane c + qc - 128. A lane ROTATION of the (block_rows + 1)-row
-            # window gives both halves (Mosaic has no unaligned lane concat,
-            # but lane rotate is native; rotate left by qc == rotate right by
-            # 128 - qc, roll requires a non-negative shift); an iota mask
-            # picks the right row: R[j, c] = S[j, (c + qc) % 128].
-            S = xp_ref[pl.ds(sr, block_rows + 1), :]
-            R = pltpu.roll(S, LANE - qc, 1)
-            shifted = jnp.where(lane < LANE - qc, R[:block_rows], R[1:])
-        # astype: f32 accumulation over (possibly bfloat16-stored) slabs —
-        # a no-op for f32 data, an in-vreg upcast for bf16 storage.
-        acc = acc + (
-            data_ref[:, d * LANE:(d + 1) * LANE].astype(jnp.float32)
-            * shifted
-        )
-    y_ref[...] = acc
-
-
-def _dia_block_rows(rows: int, ndiag: int) -> int:
-    """Largest divisor of ``rows`` whose (block, ndiag*128) data slab stays
-    ~2 MB — deep enough a DMA to stream at full rate, small enough to
-    double-buffer (block=512 measured best of {128..1024} at m=64/ndiag=7)."""
-    target = max(1, (2 * 2 ** 20) // (4 * LANE * max(ndiag, 1)))
-    for cand in range(min(target, rows), 0, -1):
-        if rows % cand == 0:
-            return cand
-    return rows
-
-
-@functools.partial(jax.jit, static_argnames=("offsets",))
-def dia_spmv_pallas(
-    data_il: jax.Array, offsets: tuple, x: jax.Array
-) -> jax.Array:
-    """Fused single-pass DIA SpMV. Requires ``dia_supported(n, offsets)``.
-
-    ``data_il`` is the ROW-INTERLEAVED (n//128, ndiag*128) layout produced by
-    ``dia_interleave`` (use ``DiaOperator`` to manage the packing).
-    """
-    rows = data_il.shape[0]
-    ndiag = data_il.shape[1] // LANE
-    n = rows * LANE
-    if not dia_supported(n, offsets):
-        raise ValueError(
-            f"pallas DIA unsupported for n={n}, offsets={offsets}; "
-            "use the XLA dia_spmv"
-        )
-    maxo = max(abs(int(o)) for o in offsets)
-    pad_rows = -(-maxo // LANE)
-    block_rows = _dia_block_rows(rows, ndiag)
-    grid = (rows // block_rows,)
-    y2 = pl.pallas_call(
-        functools.partial(_dia_kernel, tuple(int(o) for o in offsets),
-                          block_rows, pad_rows),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_rows, ndiag * LANE), lambda i: (i, 0)),
-            pl.BlockSpec((rows, LANE), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((block_rows, LANE), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, LANE), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((rows + 2 * pad_rows, LANE), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ndiag * n,
-            bytes_accessed=data_il.dtype.itemsize * ndiag * n + 4 * 2 * n,
-            transcendentals=0,
-        ),
-        # The resident vector + guard scratch alone exceed the default 16 MB
-        # scoped-VMEM cap at n=2M (m=128 Poisson); v5e has 128 MB VMEM and
-        # dia_supported bounds the actual footprint.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20
-        ),
-        interpret=interpret_mode(),
-    )(data_il, x.reshape(rows, LANE))
-    return y2.reshape(n)
-
-
-@functools.partial(jax.jit, static_argnames=("offsets",))
-def dia_spmv_halo_pallas(
-    data_il: jax.Array,
+def dia_spmv_halo(
+    data: jax.Array,
     offsets: tuple,
     x: jax.Array,
     halo_lo: jax.Array,
     halo_hi: jax.Array,
 ) -> jax.Array:
-    """Row-block DIA SpMV with NEIGHBOR halos in the guard rows.
-
-    The distributed-banded building block (``solver.sharded``): device d's
-    block needs only ``pad_rows*128`` trailing elements of block d-1
-    (``halo_lo``) and leading elements of block d+1 (``halo_hi``) — exchanged
-    as a ppermute ring, O(bandwidth) per lap instead of the all_gather's
-    O(n). Halos are flat (pad_rows*128,) arrays; pass zeros at the ends of
-    the chain (the identity-tail padding keeps out-of-matrix entries inert).
-    """
-    rows = data_il.shape[0]
-    ndiag = data_il.shape[1] // LANE
-    n = rows * LANE
-    if not dia_supported(n, offsets):
-        raise ValueError(
-            f"pallas DIA unsupported for block n={n}, offsets={offsets}"
-        )
-    maxo = max(abs(int(o)) for o in offsets)
-    pad_rows = max(1, -(-maxo // LANE))
-    if halo_lo.size != pad_rows * LANE or halo_hi.size != pad_rows * LANE:
-        raise ValueError(
-            f"halos must be {pad_rows * LANE} elements, got "
-            f"{halo_lo.size}/{halo_hi.size}"
-        )
-    block_rows = _dia_block_rows(rows, ndiag)
-    grid = (rows // block_rows,)
-    y2 = pl.pallas_call(
-        functools.partial(_dia_kernel, tuple(int(o) for o in offsets),
-                          block_rows, pad_rows),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_rows, ndiag * LANE), lambda i: (i, 0)),
-            pl.BlockSpec((rows, LANE), lambda i: (0, 0)),
-            pl.BlockSpec((pad_rows, LANE), lambda i: (0, 0)),
-            pl.BlockSpec((pad_rows, LANE), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((block_rows, LANE), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, LANE), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((rows + 2 * pad_rows, LANE), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ndiag * n,
-            bytes_accessed=data_il.dtype.itemsize * ndiag * n + 4 * 2 * n,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20
-        ),
-        interpret=interpret_mode(),
-    )(
-        data_il,
-        x.reshape(rows, LANE),
-        halo_lo.reshape(pad_rows, LANE),
-        halo_hi.reshape(pad_rows, LANE),
-    )
-    return y2.reshape(n)
-
-
-def dia_spmv_halo_xla(
-    data_il: jax.Array,
-    offsets: tuple,
-    x: jax.Array,
-    halo_lo: jax.Array,
-    halo_hi: jax.Array,
-) -> jax.Array:
-    """XLA fallback with the same halo semantics: extend the block with the
-    neighbor windows once, then one STATIC slice per diagonal."""
-    rows = data_il.shape[0]
-    n = rows * LANE
-    maxo = max(abs(int(o)) for o in offsets)
-    pad = max(1, -(-maxo // LANE)) * LANE
+    """Row-block DIA SpMV with neighbour halos: ``data`` is this block's
+    (ndiag, nb) slab, ``halo_lo``/``halo_hi`` the ``dia_halo_width``
+    elements before and after the block (zeros at the ends of the chain).
+    Extends the block once, then takes one static slice per diagonal."""
+    n = x.shape[0]
+    pad = halo_lo.shape[0]
     x_ext = jnp.concatenate([halo_lo, x, halo_hi])
-    y = jnp.zeros_like(x)
+    acc = _acc_dtype(data, x)
+    y = jnp.zeros(x.shape, acc)
     for d, off in enumerate(offsets):
-        diag = jax.lax.dynamic_slice(
-            data_il, (0, d * LANE), (rows, LANE)
-        ).reshape(n)
-        y = y + diag * jax.lax.slice(x_ext, (pad + off,), (pad + off + n,))
+        xs = jax.lax.slice(x_ext, (pad + off,), (pad + off + n,))
+        y = y + data[d].astype(acc) * xs.astype(acc)
     return y
 
 
@@ -362,9 +91,8 @@ def bsr_ell_spmv(
     """Block-ELL SpMV: values (nbr, L, bs, bs), indices (nbr, L) block-column
     ids, x (nbr_cols * bs,). Each block row gathers L dense x-blocks and does
     a batched (bs x bs) matvec — the gather moves bs elements per index (vs 1
-    for scalar ELL), and the block matvecs are dense contractions the TPU
-    vector units run at full f32 precision (HIGHEST keeps XLA off the 1-pass
-    bf16 MXU path, same contract as kernels.matvec).
+    for scalar ELL). precision=HIGHEST keeps the f32 block products out of
+    TF32 (same contract as kernels.matvec).
     """
     nbr, L, bs, _ = values.shape
     xb = x.reshape(-1, bs)

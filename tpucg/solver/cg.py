@@ -25,7 +25,6 @@ import numpy as np
 
 from tpucg.config import CGConfig
 from tpucg.kernels.blas1 import dot_xla, fused_update
-from tpucg.kernels.dispatch import resolve_backend
 from tpucg.solver.operators import LinearOperator, as_operator
 
 
@@ -121,8 +120,8 @@ def make_poly_precond(matvec: Callable, dot: Callable, b: jax.Array,
     SPD for any degree when 0 < w*lambda_max < 1, so w is set from a
     fixed-iteration power-method estimate of lambda_max (see
     ``lambda_max_estimate``). Each preconditioner application costs
-    ``degree - 1`` extra matvecs per lap — pure MXU/VPU + collectives, no
-    TPU-hostile triangular solves — and typically cuts iteration counts
+    ``degree - 1`` extra matvecs per lap — matvecs and collectives only, no
+    triangular solves — and typically cuts iteration counts
     ~2-3x on stencil-conditioned systems (an extension; the reference is
     unpreconditioned).
     """
@@ -146,8 +145,8 @@ def block_jacobi_minv(op, bs: int) -> jax.Array:
     Where point Jacobi undoes diagonal scaling only, block Jacobi also
     absorbs within-block coupling (tridiagonal bands, per-node DOF
     blocks) — and its per-lap apply is ONE batched (bs, bs) x (bs,)
-    GEMM, the MXU-native preconditioner shape (contrast incomplete
-    factorizations, whose triangular solves serialize on TPU).
+    GEMM (contrast incomplete factorizations, whose triangular solves
+    serialize).
 
     The inverse is computed ONCE by ``jnp.linalg.inv`` (plus a tiny
     trace-relative ridge): preconditioner quality, not the f32 solve
@@ -344,7 +343,7 @@ def cg_loop(
     lives OUTSIDE ``state``; a segmented driver that calls cg_loop per
     segment must thread it across calls or the two-consecutive-windows
     rule never accumulates and a floor-bound solve grinds to maxiter
-    instead of stagnation-stopping (found by the round-5 on-chip smoke:
+    instead of stagnation-stopping (found by the round-5 smoke run:
     the plain FEM n=30k two_level solve stopped honestly at 112 laps
     while the checkpointed run burned all 512). Pass ``return_stag=True``
     to get ``(state, (prev_rr, prev_stag))`` back and feed it to the next
@@ -577,9 +576,9 @@ def pipelined_cg_loop(
     reductions per lap are FUSED into one: ``dots(pairs)`` reduces a list of
     dot-product pairs in a single psum. That reduction is
     dataflow-independent of the lap's matvec (and preconditioner apply) — so
-    on a real mesh XLA can overlap the collective's ICI latency with the
+    on a real mesh XLA can overlap the collective's latency with the
     GEMV. The price is extra recurrence-maintained vectors (w, s, z — plus
-    u, q when preconditioned) of HBM traffic per lap, and slightly earlier
+    u, q when preconditioned) of memory traffic per lap, and slightly earlier
     f32 rounding drift — worth it when the psum latency, not bandwidth,
     bounds the iteration (strong-scaled small n/P). Extension beyond the
     reference (its two MPI_Allreduce calls per lap are the analogous cost,
@@ -732,14 +731,14 @@ def ca_cg_loop(
     """Communication-avoiding (s-step) CG — Chronopoulos & Gear 1989;
     Carson, Knight & Demmel 2013 (monomial-basis CA-KSMs); Hoemmen 2010.
 
-    Completes tpucg's communication-strategy spectrum, the TPU-first
+    Completes tpucg's communication-strategy spectrum, the collective
     extension of the reference's collective-vs-p2p thesis (its two arms
     differ only in HOW each lap's 3 blocking reductions travel,
     ``parallel_cg.c:287-313``): classic CG pays 2-3 scalar psums per lap,
     pipelined CG fuses them into 1, CA-CG amortizes to **one fused Gram
     reduction per s laps**. Per outer step it builds a Krylov basis
     V = [q_0(A)p, ..., q_s(A)p, q_0(A)r, ..., q_{s-1}(A)r] ((2s+1)
-    columns; tall-skinny (n, 2s+1) products — MXU-shaped GEMMs where
+    columns; tall-skinny (n, 2s+1) products — GEMMs where
     classic CG has bandwidth-bound BLAS-1), takes G = V^T V in ONE
     reduction, then advances s CG iterations entirely in (2s+1)-coordinate
     space: every alpha/beta is a tiny quadratic form in G, replicated on
@@ -1127,12 +1126,12 @@ BLOCK_CG_MAX_K = 32
 
 def _chol_lower(G, k: int):
     """Hand-rolled k x k Cholesky (k static and small). The point vs
-    ``jnp.linalg.cholesky``: every multiply here is a VPU elementwise op or
-    an explicit ``precision=HIGHEST`` dot, so nothing can fall onto the
-    MXU's default 1-pass bf16 truncation (the repo's f32 invariant —
-    XLA's blocked Cholesky/TriangularSolve lowerings expose no precision
-    control). Diagonal is floored so a ridged-but-rounded Gram can never
-    NaN the sqrt."""
+    ``jnp.linalg.cholesky``: every multiply here is an elementwise op or an
+    explicit ``precision=HIGHEST`` dot, so nothing can run at reduced
+    precision (TF32 on the GPU — the repo's f32 invariant; XLA's blocked
+    Cholesky/TriangularSolve lowerings expose no precision control).
+    Diagonal is floored so a ridged-but-rounded Gram can never NaN the
+    sqrt."""
     f32 = G.dtype
     L = jnp.zeros_like(G)
     for j in range(k):
@@ -1156,7 +1155,7 @@ def _chol_lower(G, k: int):
 def _tri_solve_lower(L, M, k: int):
     """Solve L Z = M (L (k, k) lower-triangular, M (k, m)) by explicit
     forward substitution — k static rows of HIGHEST-precision GEMVs, for
-    the same MXU-truncation reason as ``_chol_lower`` (the (k, n) solve is
+    the same precision reason as ``_chol_lower`` (the (k, n) solve is
     exactly the matmul shape XLA would otherwise run at default
     precision)."""
     rows = []
@@ -1417,8 +1416,8 @@ def block_cg_loop(
     norms of the replicated (k, k) C — no extra reduction), which bounds
     every Gram's conditioning by the search block's, not the residuals'.
 
-    TPU shape: per lap one (n, k) operator GEMM, one (k, k) Gram psum for
-    S^T A S, and a CholeskyQR2 thin QR (2 Gram psums) — MXU GEMMs plus
+    Shape: per lap one (n, k) operator GEMM, one (k, k) Gram psum for
+    S^T A S, and a CholeskyQR2 thin QR (2 Gram psums) — GEMMs plus
     replicated k x k scalar algebra, no per-column BLAS-1, 3 fused
     reductions per lap under sharding.
 
@@ -1503,11 +1502,11 @@ def block_cg_loop(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "tol", "maxiter", "blas_backend", "safe_alpha", "method", "record",
+        "tol", "maxiter", "safe_alpha", "method", "record",
         "poly_degree", "s_step", "check_every",
     ),
 )
-def _cg_jit(op, b, x0, minv, tol, maxiter, blas_backend, safe_alpha,
+def _cg_jit(op, b, x0, minv, tol, maxiter, safe_alpha,
             method="cg", record=False, poly_degree=0, s_step=3,
             check_every=8, interval=None, two_level=None):
     matvec = op.matvec
@@ -1570,9 +1569,8 @@ def _cg_jit(op, b, x0, minv, tol, maxiter, blas_backend, safe_alpha,
             precond=precond, interval=interval,
         )
         return CGResult(x=x, iterations=k, residual_norm=rn, converged=done)
-    update = functools.partial(fused_update, backend=blas_backend)
     s = cg_loop(
-        matvec, dot, update, b, x0,
+        matvec, dot, fused_update, b, x0,
         tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
         hist_len=maxiter if record else None,
         check_true_every=(
@@ -1603,7 +1601,7 @@ class _MultiState(NamedTuple):
 
 def _dot_cols(U: jax.Array, V: jax.Array) -> jax.Array:
     """Columnwise dots, (npad, k) x (npad, k) -> (k,), at HIGHEST precision
-    (the MXU bf16-truncation guard — same contract as ``dot_xla``)."""
+    (never TF32 — same contract as ``dot_xla``)."""
     return jnp.einsum(
         "nk,nk->k", U, V, precision=jax.lax.Precision.HIGHEST
     )
@@ -1766,7 +1764,7 @@ def _cg_batch_jit(A, b, x0, minv, tol, maxiter, safe_alpha, poly_degree=0):
         return s.x, s.k, jnp.sqrt(s.rslast), s.done
 
     # vmap over whole SYSTEMS: per-lane GEMVs batch into one (B,n,n)x(B,n)
-    # batched GEMM per lap on the MXU, and JAX's while_loop batching rule
+    # batched GEMM per lap, and JAX's while_loop batching rule
     # select-masks each lane's carry on its own cond — converged systems
     # freeze while the rest keep iterating (same mechanism _cg_multi_jit
     # relies on for RHS lanes).
@@ -1790,14 +1788,8 @@ def cg_solve_batch(
 
     An extension beyond the reference (one system per process run) for
     throughput/serving workloads: ``A`` is (B, n, n), ``b``/``X0`` (B, n).
-    On the Pallas path small f32 systems route through
-    ``kernels.fused.fused_batch_cg_solve_pallas`` — ONE kernel launch for
-    the whole batch, each system solved entirely in VMEM while the grid
-    pipeline prefetches the next system's matrix from HBM;
-    ``precondition="jacobi"`` rides the same kernel (in-kernel PCG with
-    per-system 1/diag operands). Everything else (large n, poly, XLA
-    backend) runs a vmapped while_loop whose per-lap matvecs batch into
-    one MXU GEMM. Result fields are batched:
+    One vmapped while_loop whose per-lap matvecs batch into one batched
+    GEMM. Result fields are batched:
     ``x`` is (B, n); ``iterations``/``residual_norm``/``converged`` (B,).
     """
     if config is None:
@@ -1820,19 +1812,7 @@ def cg_solve_batch(
     )
     if X0.shape != (B_, n):
         raise ValueError(f"X0 must be ({B_}, {n}), got {X0.shape}")
-    npad = -(-n // 128) * 128
-    if npad != n:
-        # Identity-tail padding, batched (the pad_identity_tail invariant:
-        # tail rows solve 1*x=0 and stay inert, io/partitioner.py:51-66).
-        A = jnp.pad(A, ((0, 0), (0, npad - n), (0, npad - n)))
-        idx = jnp.arange(n, npad)
-        A = A.at[:, idx, idx].set(1.0)
-        b = jnp.pad(b, ((0, 0), (0, npad - n)))
-        X0 = jnp.pad(X0, ((0, 0), (0, npad - n)))
     maxiter = config.maxiter if config.maxiter is not None else n
-    backend = resolve_backend(config.kernel)
-    from tpucg.kernels.fused import FUSED_BATCH_MAX_N
-
     if config.precondition == "block_jacobi":
         raise ValueError(
             "cg_solve_batch supports precondition 'none', 'jacobi', or "
@@ -1842,32 +1822,11 @@ def cg_solve_batch(
     if config.precondition == "jacobi":
         d = jnp.diagonal(A, axis1=1, axis2=2)
         minv = jnp.where(d != 0, 1.0 / d, 1.0).astype(jnp.float32)
-    if (
-        backend == "pallas"
-        and config.fused != "never"
-        and config.precondition in ("none", "jacobi")
-        and npad <= FUSED_BATCH_MAX_N
-    ):
-        from tpucg.kernels.fused import fused_batch_cg_solve_pallas
-
-        x, k, rr = fused_batch_cg_solve_pallas(
-            A, b, X0, tol=float(config.tol), maxiter=int(maxiter),
-            safe_alpha=bool(config.safe_alpha),
-            precondition=config.precondition, minv=minv,
-        )
-        res = CGResult(
-            x=x, iterations=k, residual_norm=jnp.sqrt(rr),
-            converged=rr < jnp.asarray(float(config.tol), rr.dtype) ** 2,
-        )
-    else:
-        res = _cg_batch_jit(
-            A, b, X0, minv, float(config.tol), int(maxiter),
-            bool(config.safe_alpha),
-            config.poly_degree if config.precondition == "poly" else 0,
-        )
-    if npad != n:
-        res = res._replace(x=res.x[:, :n])
-    return res
+    return _cg_batch_jit(
+        A, b, X0, minv, float(config.tol), int(maxiter),
+        bool(config.safe_alpha),
+        config.poly_degree if config.precondition == "poly" else 0,
+    )
 
 
 @functools.partial(
@@ -1875,29 +1834,25 @@ def cg_solve_batch(
     static_argnames=("offsets", "tol", "maxiter", "safe_alpha",
                      "precondition"),
 )
-def _cg_batch_dia_xla_jit(data_il, offsets, b, X0, tol, maxiter,
-                          safe_alpha, precondition):
-    """Off-TPU / oversize fallback: vmapped while_loop over the batch with
-    the interleaved shift-and-add SpMV per system."""
-    from tpucg.kernels.spmv import LANE, dia_spmv_interleaved_xla
+def _cg_batch_dia_jit(data, offsets, b, X0, tol, maxiter, safe_alpha,
+                      precondition):
+    """vmapped while_loop over the batch with the shift-and-add SpMV per
+    system."""
+    from tpucg.kernels.spmv import dia_spmv
 
     def one(data_i, b_i, x0_i):
-        mv = lambda v: dia_spmv_interleaved_xla(data_i, offsets, v)
+        mv = lambda v: dia_spmv(data_i, offsets, v)
         precond = None
         if precondition == "jacobi":
-            d0 = offsets.index(0)
-            d = jax.lax.dynamic_slice(
-                data_i, (0, d0 * LANE), (data_i.shape[0], LANE)
-            ).reshape(-1).astype(jnp.float32)
+            d = data_i[offsets.index(0)].astype(jnp.float32)
             minv = jnp.where(d != 0, 1.0 / d, 1.0)
             precond = lambda r: minv * r
-        update = functools.partial(fused_update, backend="xla")
-        s = cg_loop(mv, dot_xla, update, b_i, x0_i,
+        s = cg_loop(mv, dot_xla, fused_update, b_i, x0_i,
                     tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
                     precond=precond)
         return s.x, s.k, s.rslast, s.done
 
-    x, k, rr, done = jax.vmap(one)(data_il, b, X0)
+    x, k, rr, done = jax.vmap(one)(data, b, X0)
     return CGResult(
         x=x, iterations=k, residual_norm=jnp.sqrt(rr), converged=done,
     )
@@ -1918,24 +1873,12 @@ def cg_solve_batch_banded(
     of implicit PDE time stepping (many small tridiagonal/banded batteries
     sharing one discretization): ``data`` is (B, ndiag, n) canonical DIA
     values (``data[i, d, j] = A_i[j, j + offsets[d]]``), ``offsets`` one
-    static tuple shared by the batch, ``b``/``X0`` (B, n). On the Pallas
-    path the whole batch is ONE kernel launch
-    (``kernels.fused.fused_batch_dia_cg_solve_pallas``): each system's
-    diagonal slab sits in VMEM for its entire solve while the grid
-    pipeline prefetches the next system's. ``precondition`` in
-    {'none', 'jacobi'} (1/diag read from the resident slab);
-    ``storage_dtype=bfloat16`` halves the slab stream (f32 accumulate).
-    Off-TPU or oversize batches fall back to a vmapped while_loop over
-    the shift-and-add SpMV. Result fields are batched like
-    ``cg_solve_batch``.
+    static tuple shared by the batch, ``b``/``X0`` (B, n). One vmapped
+    while_loop over the shift-and-add SpMV. ``precondition`` in
+    {'none', 'jacobi'}; ``storage_dtype=bfloat16`` halves the slab stream
+    (f32 accumulate). Result fields are batched like ``cg_solve_batch``.
     """
     import numpy as np
-
-    from tpucg.kernels.fused import (
-        fused_batch_dia_cg_solve_pallas,
-        fused_batch_dia_supported,
-    )
-    from tpucg.kernels.spmv import LANE, dia_interleave
 
     if config is None:
         config = CGConfig(**overrides)
@@ -1969,53 +1912,15 @@ def cg_solve_batch_banded(
         if X0 is None
         else jnp.asarray(X0, jnp.float32)
     )
-    npad = -(-n // LANE) * LANE
-    if npad != n:
-        if 0 not in offsets:
-            raise ValueError(
-                "non-128-multiple n needs a stored main diagonal for the "
-                "identity padding"
-            )
-        padded = np.zeros((B_, ndiag, npad), np.float32)
-        padded[:, :, :n] = data
-        padded[:, offsets.index(0), n:] = 1.0
-        data = padded
-        b = jnp.pad(b, ((0, 0), (0, npad - n)))
-        X0 = jnp.pad(X0, ((0, 0), (0, npad - n)))
-    # Interleave each system's slab (host-side, setup-only).
-    data_il = np.stack([np.asarray(dia_interleave(data[i]))
-                        for i in range(B_)])
     if jnp.dtype(storage_dtype) == jnp.bfloat16:
         import ml_dtypes
 
-        data_il = data_il.astype(ml_dtypes.bfloat16)
+        data = data.astype(ml_dtypes.bfloat16)
     maxiter = config.maxiter if config.maxiter is not None else n
-    backend = resolve_backend(config.kernel)
-    if (
-        backend == "pallas"
-        and config.fused != "never"
-        and fused_batch_dia_supported(
-            npad, offsets, data_il.dtype.itemsize
-        )
-    ):
-        x, k, rr = fused_batch_dia_cg_solve_pallas(
-            jnp.asarray(data_il), offsets, b, X0,
-            tol=float(config.tol), maxiter=int(maxiter),
-            safe_alpha=bool(config.safe_alpha),
-            precondition=config.precondition,
-        )
-        res = CGResult(
-            x=x, iterations=k, residual_norm=jnp.sqrt(rr),
-            converged=rr < jnp.asarray(float(config.tol), rr.dtype) ** 2,
-        )
-    else:
-        res = _cg_batch_dia_xla_jit(
-            jnp.asarray(data_il), offsets, b, X0, float(config.tol),
-            int(maxiter), bool(config.safe_alpha), config.precondition,
-        )
-    if npad != n:
-        res = res._replace(x=res.x[:, :n])
-    return res
+    return _cg_batch_dia_jit(
+        jnp.asarray(data), offsets, b, X0, float(config.tol),
+        int(maxiter), bool(config.safe_alpha), config.precondition,
+    )
 
 
 @functools.partial(jax.jit, static_argnames=("power_iters",))
@@ -2034,7 +1939,7 @@ def spectral_interval(A, power_iters: int = 16):
     f32 residual floors (O(eps * kappa) relative). Estimates, not bounds
     proper: lam_hi is typically slightly UNDER, lam_lo slightly OVER.
     """
-    op = as_operator(A, backend="xla")
+    op = as_operator(A)
     like = jnp.zeros((op.padded_n,), jnp.float32)
     lam_lo, lam_hi = _interval_jit(op, like, int(power_iters))
     lam_lo_f, lam_hi_f = float(lam_lo), float(lam_hi)
@@ -2067,16 +1972,7 @@ def cg_solve_multi(
         config = dataclasses_replace(config, **overrides)
     if config.method != "cg":
         raise ValueError("cg_solve_multi supports method='cg' only")
-    # The Pallas GEMV is single-vector; under vmap the XLA GEMM path is the
-    # right kernel regardless of config.kernel (MXU, HIGHEST precision) — a
-    # vmapped Pallas GEMV would re-stream A once per RHS lane, silently
-    # defeating the k-fold bandwidth amortization. Pre-built Pallas
-    # DenseOperators are rebuilt on XLA reusing their already-padded A.
-    from tpucg.solver.operators import DenseOperator
-
-    op = as_operator(A, backend="xla")
-    if isinstance(op, DenseOperator) and op.backend == "pallas":
-        op = DenseOperator(A=op.A, n=op.n, backend="xla")
+    op = as_operator(A)
     n, npad = op.n, op.padded_n
     B = jnp.asarray(B, jnp.float32)
     if B.ndim != 2 or B.shape[0] != n:
@@ -2253,13 +2149,9 @@ def cg_solve_block(
             "cg_solve_block supports method='cg' with precondition "
             "'none', 'jacobi', 'block_jacobi', or 'poly'"
         )
-    # Same kernel rationale as cg_solve_multi: under the (n, k) block GEMM
-    # the XLA path is right regardless of config.kernel.
     from tpucg.solver.operators import DenseOperator
 
-    op = as_operator(A, backend="xla")
-    if isinstance(op, DenseOperator) and op.backend == "pallas":
-        op = DenseOperator(A=op.A, n=op.n, backend="xla")
+    op = as_operator(A)
     scale = None
     flexible = config.precondition in ("poly", "block_jacobi")
     if config.precondition == "jacobi":
@@ -2273,8 +2165,7 @@ def cg_solve_block(
             d = op.diagonal()
             scale = jnp.where(d > 0, jax.lax.rsqrt(d), jnp.ones_like(d))
             op = DenseOperator(
-                A=scale[:, None] * op.A * scale[None, :], n=op.n,
-                backend="xla",
+                A=scale[:, None] * op.A * scale[None, :], n=op.n
             )
         else:
             # Sparse / matrix-free / bf16-storage: the M-inner-product
@@ -2288,8 +2179,8 @@ def cg_solve_block(
     if k > BLOCK_CG_MAX_K:
         raise ValueError(
             f"block CG supports k <= {BLOCK_CG_MAX_K} right-hand sides "
-            f"(got {k}): the MXU-safe k x k algebra unrolls O(k^2) traced "
-            "ops per lap — use cg_solve_multi for wide batches"
+            f"(got {k}): the full-precision k x k algebra unrolls O(k^2) "
+            "traced ops per lap — use cg_solve_multi for wide batches"
         )
     X0 = (
         jnp.zeros((n, k), jnp.float32)
@@ -2368,14 +2259,13 @@ def cg_solve(
         config = CGConfig(**overrides)
     elif overrides:
         config = dataclasses_replace(config, **overrides)
-    backend = resolve_backend(config.kernel)
     dtype = jnp.dtype(config.dtype)
     if dtype == jnp.float64 and not jax.config.jax_enable_x64:
         raise ValueError(
             "dtype=float64 requires jax.config.update('jax_enable_x64', True) "
             "(the reference contract is float32; f64 is a tpucg extension)"
         )
-    op = as_operator(A, backend=backend, dtype=dtype)
+    op = as_operator(A, dtype=dtype)
     n = op.n
     npad = op.padded_n
     b = jnp.asarray(b, dtype=dtype)
@@ -2392,10 +2282,6 @@ def cg_solve(
         b = jnp.pad(b, (0, npad - n))
         x0 = jnp.pad(x0, (0, npad - n))
     maxiter = config.maxiter if config.maxiter is not None else n
-    # The Pallas kernels are float32-only; other dtypes take the XLA path.
-    blas_backend = (
-        backend if npad % 128 == 0 and dtype == jnp.float32 else "xla"
-    )
     minv = None
     if config.precondition == "jacobi":
         d = op.diagonal()
@@ -2435,48 +2321,8 @@ def cg_solve(
                 f"operator has {npad} — rebuild with "
                 f"build_two_level(csr, npad={npad})"
             )
-    fused_kind = (
-        None if two_level is not None
-        else _fused_eligible(config, op, backend, dtype, record_residuals)
-    )
-    fused_pc = dict(
-        precondition=config.precondition,
-        poly_degree=(
-            int(config.poly_degree) if config.precondition == "poly" else 0
-        ),
-    )
-    if fused_kind == "dense":
-        from tpucg.kernels.fused import fused_cg_solve_pallas
-
-        x, k, rr = fused_cg_solve_pallas(
-            op.A, b, x0, tol=float(config.tol), maxiter=int(maxiter),
-            safe_alpha=bool(config.safe_alpha), minv=minv, **fused_pc,
-        )
-    elif fused_kind == "stencil":
-        from tpucg.kernels.fused import fused_stencil_cg_solve_pallas
-
-        x, k, rr = fused_stencil_cg_solve_pallas(
-            b, x0, op.m, tol=float(config.tol), maxiter=int(maxiter),
-            safe_alpha=bool(config.safe_alpha), **fused_pc,
-        )
-    elif fused_kind == "dia":
-        from tpucg.kernels.fused import fused_dia_cg_solve_pallas
-
-        x, k, rr = fused_dia_cg_solve_pallas(
-            op.data, op.offsets, b, x0, tol=float(config.tol),
-            maxiter=int(maxiter), safe_alpha=bool(config.safe_alpha),
-            **fused_pc,
-        )
-    if fused_kind is not None:
-        res = CGResult(
-            x=x, iterations=k, residual_norm=jnp.sqrt(rr),
-            converged=rr < jnp.asarray(float(config.tol), rr.dtype) ** 2,
-        )
-        if npad != n:
-            res = res._replace(x=res.x[:n])
-        return res
     res = _cg_jit(
-        op, b, x0, minv, float(config.tol), int(maxiter), blas_backend,
+        op, b, x0, minv, float(config.tol), int(maxiter),
         bool(config.safe_alpha), config.method, bool(record_residuals),
         config.poly_degree if config.precondition == "poly" else 0,
         int(config.s_step), int(config.check_every), interval, two_level,
@@ -2484,67 +2330,6 @@ def cg_solve(
     if npad != n:
         res = res._replace(x=res.x[:n])
     return res
-
-
-def _fused_eligible(config, op, backend, dtype, record_residuals):
-    """Route a plain serial f32 Pallas CG through a
-    whole-solve-in-one-kernel path (``kernels.fused``) when the solve state
-    fits VMEM: returns ``"dense"`` (A-resident GEMV solve, below the
-    measured launch-floor crossover), ``"stencil"`` (matrix-free Poisson),
-    ``"dia"`` (banded, diagonal slab VMEM-resident) — the sparse kinds
-    always win when supported: zero per-lap launches AND zero per-lap HBM
-    traffic — or ``None``. Preconditioned solves stay fused where the
-    kernels run the PCG recurrence in-kernel: jacobi on dense/dia (the
-    stencil's constant diagonal makes it an iterate-exact no-op there —
-    lap path keeps that case honest) and poly everywhere. Every other
-    configuration (methods, traces, bf16 storage, other sparse operators)
-    keeps the jitted while_loop path."""
-    from tpucg.kernels.fused import (
-        FUSED_AUTO_MAX_N,
-        FUSED_MAX_N,
-        fused_dia_supported,
-        fused_stencil_supported,
-    )
-    from tpucg.solver.operators import (
-        DenseOperator,
-        DiaOperator,
-        PoissonOperator,
-    )
-
-    if config.fused == "never" or backend != "pallas":
-        return None
-    if config.method != "cg":
-        return None
-    if record_residuals or dtype != jnp.float32:
-        return None
-    pc = config.precondition
-    if pc == "block_jacobi":
-        # The in-kernel PCG recurrences know jacobi/poly only; block
-        # Jacobi's batched block GEMV rides the lap path.
-        return None
-    if isinstance(op, PoissonOperator):
-        if pc not in ("none", "poly"):
-            return None
-        if op.kernel in ("auto", "pallas") and fused_stencil_supported(op.m):
-            return "stencil"
-        return None
-    if isinstance(op, DiaOperator):
-        if pc == "jacobi" and 0 not in op.offsets:
-            return None
-        if (
-            op.interleaved
-            and op.backend in ("auto", "pallas")
-            and op.data.dtype in (jnp.float32, jnp.bfloat16)
-            and fused_dia_supported(op.padded_n, op.offsets,
-                                    op.data.dtype.itemsize)
-        ):
-            return "dia"
-        return None
-    if not isinstance(op, DenseOperator) or op.A.dtype != jnp.float32:
-        return None
-    npad = op.padded_n
-    cap = FUSED_MAX_N if config.fused == "always" else FUSED_AUTO_MAX_N
-    return "dense" if npad % 128 == 0 and npad <= cap else None
 
 
 def dataclasses_replace(config: CGConfig, **overrides) -> CGConfig:

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing at all — the CG state lives only in process
 memory and any failure loses the whole solve (SURVEY.md §5: "Checkpoint /
-resume: None"). On TPU the full solver state is tiny and explicit — exactly
+resume: None"). Here the full solver state is tiny and explicit — exactly
 (k, x, r, p, rsold), the carried tuple of the jitted while_loop — so tpucg can
 dump and resume it trivially, on EVERY decomposition: serial, 1-D row-sharded
 dense (``sharded_cg_solve_checkpointed``, which also routes 2-D SUMMA
@@ -36,7 +36,6 @@ import numpy as np
 from tpucg.config import CGConfig
 from tpucg.kernels.blas1 import dot_xla as _dot
 from tpucg.kernels.blas1 import fused_update
-from tpucg.kernels.dispatch import resolve_backend
 from tpucg.solver.cg import (
     CGResult,
     _State,
@@ -71,8 +70,9 @@ def system_signature(op, b: jnp.ndarray) -> np.ndarray:
     and 'converge' to a solution of neither system.
 
     Compared with a RELATIVE tolerance on resume (``signatures_match``), not
-    hashed bit-exactly: a kernel-backend change (pallas vs xla) or different
-    hardware reduction order perturbs the probe response at ~1e-7 relative,
+    hashed bit-exactly: a different reduction order (another device, XLA's
+    choice of algorithm, scatter-add atomics) perturbs the probe response at
+    ~1e-7 relative,
     which must not be mistaken for a different system (O(1) relative).
 
     ``op`` is anything with a ``matvec`` attribute, or a bare matvec callable
@@ -586,10 +586,8 @@ def _serial_precond(minv, op, like, two_level, basis=None):
     return base
 
 
-@functools.partial(jax.jit, static_argnames=("tol", "blas_backend"))
-def _init_jit(op, b, x0, minv, tol, blas_backend, two_level=None,
-              basis=None):
-    del blas_backend
+@functools.partial(jax.jit, static_argnames=("tol",))
+def _init_jit(op, b, x0, minv, tol, two_level=None, basis=None):
     if basis is not None:
         # Galerkin warm start (cg_solve_deflated): x0 += W Ginv W^T r0.
         # Fresh starts only — a RESUMED state carries its own trajectory.
@@ -606,11 +604,11 @@ def _init_jit(op, b, x0, minv, tol, blas_backend, two_level=None,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tol", "blas_backend", "safe_alpha")
+    jax.jit, static_argnames=("tol", "safe_alpha")
 )
-def _segment_jit(op, state, minv, k_target, tol, blas_backend, safe_alpha,
+def _segment_jit(op, state, minv, k_target, tol, safe_alpha,
                  two_level=None, basis=None, b=None, stag_carry=None):
-    update = functools.partial(fused_update, backend=blas_backend)
+    update = fused_update
     # The composed deflation x two-level recurrence replaces residuals
     # (solver.deflation.DEFLATED_REPLACE_EVERY, keyed on the CUMULATIVE
     # k) — the segments must run the exact recurrence cg_solve_deflated
@@ -686,7 +684,6 @@ def cg_solve_checkpointed(
     _validate_checkpoint_config(
         config, segment_iters, allowed=("none", "jacobi", "block_jacobi")
     )
-    backend = resolve_backend(config.kernel)
     from tpucg.sparse.formats import CSRMatrix
 
     if isinstance(A, CSRMatrix):
@@ -697,11 +694,10 @@ def cg_solve_checkpointed(
         # ELL npad also rejects any correctly built two_level.
         from tpucg.solver.operators import best_sparse_operator
 
-        op = best_sparse_operator(A, backend=backend)
+        op = best_sparse_operator(A)
     else:
-        op = as_operator(A, backend=backend)
+        op = as_operator(A)
     n, npad = op.n, op.padded_n
-    blas_backend = backend if npad % 128 == 0 else "xla"
     maxiter = config.maxiter if config.maxiter is not None else n
     tol = float(config.tol)
     minv = None
@@ -759,7 +755,7 @@ def cg_solve_checkpointed(
         if npad != n:
             x0j = jnp.pad(x0j, (0, npad - n))
         state = _state_to_host(
-            _init_jit(op, bj, x0j, minv, tol, blas_backend,
+            _init_jit(op, bj, x0j, minv, tol,
                       two_level=two_level, basis=basis)
         )
 
@@ -772,7 +768,7 @@ def cg_solve_checkpointed(
 
     def segment_fn(st, kt):
         st2, carry = _segment_jit(
-            op, st, minv, kt, tol, blas_backend, bool(config.safe_alpha),
+            op, st, minv, kt, tol, bool(config.safe_alpha),
             two_level=two_level, basis=basis, b=bj,
             stag_carry=stag[0],
         )
@@ -835,7 +831,7 @@ def sharded_cg_solve_checkpointed(
         _sharded_matvec_jit,
         _sharded_segment_jit,
         distribute_system,
-        row_align,
+        ROW_ALIGN,
     )
 
     if config is None:
@@ -845,7 +841,6 @@ def sharded_cg_solve_checkpointed(
     _validate_checkpoint_config(config, segment_iters)
     if mesh is None:
         mesh = make_mesh()
-    backend = resolve_backend(config.kernel)
     multiprocess = jax.process_count() > 1
     if mesh.devices.ndim == 2:
         if n is not None or isinstance(A, jax.Array):
@@ -864,7 +859,7 @@ def sharded_cg_solve_checkpointed(
                 "same collectives) for multi-process checkpointed runs."
             )
         return _sharded2d_cg_solve_checkpointed(
-            A, b, x0, mesh, config, backend,
+            A, b, x0, mesh, config,
             segment_iters=segment_iters, checkpoint_path=checkpoint_path,
             keep_checkpoint=keep_checkpoint,
         )
@@ -872,7 +867,7 @@ def sharded_cg_solve_checkpointed(
     if isinstance(A, jax.Array):
         n = A.shape[0] if n is None else n
         part = RowPartition(
-            n=n, num_shards=mesh.devices.size, align=row_align(backend)
+            n=n, num_shards=mesh.devices.size, align=ROW_ALIGN
         )
         npad = part.n_padded
         if A.shape != (npad, npad):
@@ -903,7 +898,7 @@ def sharded_cg_solve_checkpointed(
             raise ValueError("n override is for pre-sharded device inputs")
         n = A.shape[0]
         part = RowPartition(
-            n=n, num_shards=mesh.devices.size, align=row_align(backend)
+            n=n, num_shards=mesh.devices.size, align=ROW_ALIGN
         )
         npad = part.n_padded
         Ad, bd, x0d = distribute_system(
@@ -916,7 +911,7 @@ def sharded_cg_solve_checkpointed(
     tol = float(config.tol)
     maxiter = config.maxiter if config.maxiter is not None else n
     static = dict(
-        mesh=mesh, strategy=config.strategy, backend=backend, axis=axis,
+        mesh=mesh, strategy=config.strategy, axis=axis,
     )
 
     if multiprocess:
@@ -1119,7 +1114,7 @@ def sharded_operator_cg_solve_checkpointed(
 
 
 def _sharded2d_cg_solve_checkpointed(
-    A, b, x0, mesh, config, backend, *, segment_iters, checkpoint_path,
+    A, b, x0, mesh, config, *, segment_iters, checkpoint_path,
     keep_checkpoint,
 ) -> CGResult:
     """2-D (SUMMA) arm of ``sharded_cg_solve_checkpointed``: same segmented
@@ -1138,11 +1133,11 @@ def _sharded2d_cg_solve_checkpointed(
     A = np.asarray(A, np.float32)
     n = A.shape[0]
     Ad, bd, x0d, minvd, npad = _prepare_sharded2d(
-        A, b, x0, mesh, config, backend
+        A, b, x0, mesh, config
     )
     tol = float(config.tol)
     maxiter = config.maxiter if config.maxiter is not None else n
-    static = dict(mesh=mesh, backend=backend)
+    static = dict(mesh=mesh)
 
     def sig_fn():
         mv = lambda v: _sharded2d_matvec_jit(Ad, v, **static)

@@ -18,9 +18,9 @@ and keep every search direction A-orthogonal to range(W):
 
 With ``W^T r = 0`` maintained, the iteration behaves as if the components
 of the spectrum captured by W were removed — the effective condition
-number drops accordingly. TPU shape: the projection is two tall-skinny
+number drops accordingly. Shape: the projection is two tall-skinny
 HIGHEST-precision GEMVs per lap ((m, n) @ (n,) and (n, m) @ (m,)) plus an
-m x m solve applied as a precomputed inverse — MXU/VPU work with no
+m x m solve applied as a precomputed inverse — dense work with no
 irregular access; the while_loop body stays static.
 
 Implementation note: ``P`` is folded into ``cg_loop``'s ``precond`` slot
@@ -45,7 +45,6 @@ import numpy as np
 
 from tpucg.config import CGConfig
 from tpucg.kernels.blas1 import dot_xla, fused_update
-from tpucg.kernels.dispatch import resolve_backend
 from tpucg.solver.cg import (
     TRUE_CHECK_EVERY,
     CGResult,
@@ -55,7 +54,7 @@ from tpucg.solver.cg import (
     make_block_precond,
     make_poly_precond,
 )
-from tpucg.solver.operators import DenseOperator, as_operator
+from tpucg.solver.operators import as_operator
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -94,7 +93,7 @@ class DeflationBasis(NamedTuple):
         return int(self.W.shape[1])
 
 
-def build_deflation_basis(A, V, kernel: str = "auto") -> DeflationBasis:
+def build_deflation_basis(A, V) -> DeflationBasis:
     """A-orthonormalize the columns of ``V`` (n, m) into a reusable
     :class:`DeflationBasis` for ``A``.
 
@@ -116,12 +115,7 @@ def build_deflation_basis(A, V, kernel: str = "auto") -> DeflationBasis:
     host + m device matvecs); the returned basis may have fewer columns
     than V.
     """
-    backend = resolve_backend(kernel)
-    op = as_operator(A, backend=backend)
-    # Batched basis build: one XLA GEMM beats m Pallas GEMV launches
-    # (same exception as cg_solve_multi, solver/cg.py).
-    if isinstance(op, DenseOperator) and op.backend == "pallas":
-        op = DenseOperator(A=op.A, n=op.n, backend="xla")
+    op = as_operator(A)
     V = np.asarray(V, np.float64)
     if V.ndim == 1:
         V = V[:, None]
@@ -189,10 +183,10 @@ def _deflate_precond(basis: DeflationBasis, base):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("tol", "maxiter", "blas_backend", "safe_alpha",
+    static_argnames=("tol", "maxiter", "safe_alpha",
                      "poly_degree", "record"),
 )
-def _deflated_jit(op, b, x0, basis, minv, tol, maxiter, blas_backend,
+def _deflated_jit(op, b, x0, basis, minv, tol, maxiter,
                   safe_alpha, poly_degree=0, record=False, two_level=None):
     matvec = op.matvec
     if two_level is not None:
@@ -218,7 +212,7 @@ def _deflated_jit(op, b, x0, basis, minv, tol, maxiter, blas_backend,
                    precision=_HI)
     x0 = x0 + jnp.matmul(basis.W, y, precision=_HI)
 
-    update = functools.partial(fused_update, backend=blas_backend)
+    update = fused_update
     s = cg_loop(
         matvec, dot_xla, update, b, x0,
         tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
@@ -298,11 +292,10 @@ def cg_solve_deflated(
         raise ValueError("cg_solve_deflated is float32-only")
     if (V is None) == (basis is None):
         raise ValueError("pass exactly one of V or basis")
-    backend = resolve_backend(config.kernel)
-    op = as_operator(A, backend=backend)
+    op = as_operator(A)
     n, npad = op.n, op.padded_n
     if basis is None:
-        basis = build_deflation_basis(A, V, kernel=config.kernel)
+        basis = build_deflation_basis(A, V)
     if basis.W.shape[0] != npad:
         raise ValueError(
             f"basis was built for padded size {basis.W.shape[0]}, "
@@ -317,7 +310,6 @@ def cg_solve_deflated(
         b = jnp.pad(b, (0, npad - n))
         x0 = jnp.pad(x0, (0, npad - n))
     maxiter = config.maxiter if config.maxiter is not None else n
-    blas_backend = backend if npad % 128 == 0 else "xla"
     if two_level is not None:
         if config.precondition != "none":
             raise ValueError(
@@ -337,7 +329,7 @@ def cg_solve_deflated(
         minv = block_jacobi_minv(op, int(config.pc_block_size))
     res = _deflated_jit(
         op, b, x0, basis, minv, float(config.tol), int(maxiter),
-        blas_backend, bool(config.safe_alpha),
+        bool(config.safe_alpha),
         config.poly_degree if config.precondition == "poly" else 0,
         bool(record_residuals), two_level,
     )
@@ -348,12 +340,12 @@ def cg_solve_deflated(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "strategy", "backend", "tol", "maxiter",
+    static_argnames=("mesh", "strategy", "tol", "maxiter",
                      "safe_alpha", "axis", "precondition", "poly_degree",
                      "pc_block_size"),
 )
 def _sharded_deflated_jit(
-    A, b, x0, W, AW, Ginv, *, mesh, strategy, backend, tol, maxiter,
+    A, b, x0, W, AW, Ginv, *, mesh, strategy, tol, maxiter,
     safe_alpha, axis, precondition="none", poly_degree=0, pc_block_size=64,
 ):
     """Row-block-sharded deflated CG. W/AW ride the same P(axis) sharding
@@ -372,7 +364,7 @@ def _sharded_deflated_jit(
     num = mesh.devices.size
 
     def solve(A_blk, b_blk, x_blk, W_blk, AW_blk, G):
-        mv = _make_matvec(A_blk, strategy, num, backend, axis)
+        mv = _make_matvec(A_blk, strategy, num, axis)
         dot, _, update = _make_reductions(axis)
         base = None
         if precondition == "jacobi":
@@ -414,9 +406,6 @@ def _sharded_deflated_jit(
         in_specs=(P(axis, None), P(axis), P(axis), P(axis, None),
                   P(axis, None), P(None, None)),
         out_specs=(P(axis), P(), P(), P()),
-        # Same scoping rationale as _sharded_cg_jit: the Pallas matvec arms
-        # carry no varying-mesh-axes annotation.
-        check_vma=(backend != "pallas"),
     )(A, b, x0, W, AW, Ginv)
 
 
@@ -442,12 +431,12 @@ def _host_basis(Apad: np.ndarray, Vpad: np.ndarray):
     jax.jit,
     static_argnames=("mesh", "tol", "maxiter", "safe_alpha", "axis", "kind",
                      "m", "m_padded", "precondition", "poly_degree",
-                     "offsets", "backend"),
+                     "offsets"),
 )
 def _sharded_operator_deflated_jit(
     op_arrays, b, x0, W, AW, Ginv, minv, *, mesh, tol, maxiter, safe_alpha,
     axis, kind, m=None, m_padded=None, precondition="none", poly_degree=0,
-    offsets=None, backend="xla",
+    offsets=None,
 ):
     """Deflated CG over a sharded sparse/stencil operator: the operator
     matvec closures of ``_sharded_operator_cg_jit`` + the row-sharded
@@ -459,14 +448,13 @@ def _sharded_operator_deflated_jit(
         _make_reductions,
         _operator_matvec,
         _operator_specs,
-        _operator_uses_pallas,
     )
 
     num = mesh.devices.size
 
     def solve(op_blk, b_blk, x_blk, W_blk, AW_blk, G, minv_blk):
         mv = _operator_matvec(
-            kind, op_blk, axis, num, m, m_padded, offsets, backend
+            kind, op_blk, axis, num, m, m_padded, offsets
         )
         dot, _, update = _make_reductions(axis)
         base = None
@@ -503,16 +491,15 @@ def _sharded_operator_deflated_jit(
         in_specs=(_operator_specs(kind, axis), vec, vec, P(axis, None),
                   P(axis, None), P(None, None), vec),
         out_specs=(vec, P(), P(), P()),
-        check_vma=not _operator_uses_pallas(kind, m, m_padded, mesh, backend),
     )(op_arrays, b, x0, W, AW, Ginv, minv)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "backend", "tol", "maxiter", "safe_alpha",
+    static_argnames=("mesh", "tol", "maxiter", "safe_alpha",
                      "precondition", "poly_degree"),
 )
-def _sharded2d_deflated_jit(A, b, x0, W, AW, Ginv, minv, *, mesh, backend,
+def _sharded2d_deflated_jit(A, b, x0, W, AW, Ginv, minv, *, mesh,
                             tol, maxiter, safe_alpha, precondition="none",
                             poly_degree=0):
     """Deflated CG over the 2-D SUMMA decomposition: W/AW ride the same
@@ -527,7 +514,7 @@ def _sharded2d_deflated_jit(A, b, x0, W, AW, Ginv, minv, *, mesh, backend,
     axes = (r_ax, c_ax)
 
     def solve(A_blk, b_blk, x_blk, W_blk, AW_blk, G, minv_blk):
-        mv = _matvec_2d(A_blk, r_ax, c_ax, backend)
+        mv = _matvec_2d(A_blk, r_ax, c_ax)
         dot = lambda u, v: jax.lax.psum(dot_xla(u, v), axes)
 
         def update(x, r, p, ap, alpha):
@@ -569,7 +556,6 @@ def _sharded2d_deflated_jit(A, b, x0, W, AW, Ginv, minv, *, mesh, backend,
         in_specs=(P(r_ax, c_ax), vec, vec, P((r_ax, c_ax), None),
                   P((r_ax, c_ax), None), P(None, None), vec),
         out_specs=(vec, P(), P(), P()),
-        check_vma=(backend != "pallas"),
     )(A, b, x0, W, AW, Ginv, minv)
 
 
@@ -586,7 +572,6 @@ def _sharded2d_deflated(A, b, V, x0, mesh, config) -> CGResult:
             "'poly'} (block Jacobi is 1-D-only: the 2-D decomposition "
             "stores column-permuted blocks)"
         )
-    backend = resolve_backend(config.kernel)
     A = np.asarray(A, np.float32)
     n = A.shape[0]
     V = np.asarray(V, np.float32)
@@ -595,7 +580,7 @@ def _sharded2d_deflated(A, b, V, x0, mesh, config) -> CGResult:
     if V.shape[0] != n:
         raise ValueError(f"V must have {n} rows, got {V.shape}")
     Ad, bd, x0d, minvd, npad = _prepare_sharded2d(
-        A, b, x0, mesh, config, backend
+        A, b, x0, mesh, config
     )
     from tpucg.io.partitioner import pad_identity_tail
 
@@ -614,7 +599,7 @@ def _sharded2d_deflated(A, b, V, x0, mesh, config) -> CGResult:
         jax.device_put(AW, shard),
         jax.device_put(Ginv, NamedSharding(mesh, P(None, None))),
         minvd,
-        mesh=mesh, backend=backend,
+        mesh=mesh,
         tol=float(config.tol), maxiter=int(maxiter),
         safe_alpha=bool(config.safe_alpha),
         precondition=config.precondition,
@@ -755,7 +740,7 @@ def sharded_cg_solve_deflated(
 
     from tpucg.comm.mesh import make_mesh
     from tpucg.io.partitioner import RowPartition, pad_identity_tail
-    from tpucg.solver.sharded import distribute_system, row_align
+    from tpucg.solver.sharded import distribute_system, ROW_ALIGN
 
     if config is None:
         config = CGConfig(**overrides)
@@ -783,13 +768,12 @@ def sharded_cg_solve_deflated(
         return _sharded_operator_deflated(A, b, V, x0, mesh, config)
     axis = mesh.axis_names[0]
     num = mesh.devices.size
-    backend = resolve_backend(config.kernel)
     A = np.asarray(A, np.float32)
     n = A.shape[0]
     from tpucg.solver.sharded import pc_align
 
     part = RowPartition(n=n, num_shards=num,
-                        align=pc_align(row_align(backend), config))
+                        align=pc_align(ROW_ALIGN, config))
     npad = part.n_padded
     V = np.asarray(V, np.float32)
     if V.ndim == 1:
@@ -811,7 +795,7 @@ def sharded_cg_solve_deflated(
     maxiter = config.maxiter if config.maxiter is not None else n
     x, k, rn, done = _sharded_deflated_jit(
         Ad, bd, x0d, Wd, AWd, Gd,
-        mesh=mesh, strategy=config.strategy, backend=backend,
+        mesh=mesh, strategy=config.strategy,
         tol=float(config.tol), maxiter=int(maxiter),
         safe_alpha=bool(config.safe_alpha), axis=axis,
         precondition=config.precondition,
@@ -943,7 +927,6 @@ class RecyclingCG:
             if self.mesh is None:
                 self._basis = build_deflation_basis(
                     self.A, np.stack(self._vectors, axis=1),
-                    kernel=self.config.kernel,
                 )
         return res
 
@@ -1002,6 +985,5 @@ class RecyclingCG:
         if self._vectors and self.mesh is None:
             self._basis = build_deflation_basis(
                 self.A, np.stack(self._vectors, axis=1),
-                kernel=self.config.kernel,
             )
         return len(self._vectors)

@@ -30,7 +30,6 @@ import numpy as np
 
 from tpucg.config import CGConfig
 from tpucg.kernels.blas1 import dot_xla, fused_update
-from tpucg.kernels.dispatch import resolve_backend
 from tpucg.solver.cg import CGResult, cg_loop, dataclasses_replace
 from tpucg.solver.operators import DenseOperator
 
@@ -100,14 +99,12 @@ def ir_loop(mv16, mv32, dot, update, b, x0, *, tol, inner_rtol,
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "tol", "inner_rtol", "inner_maxiter", "max_refine", "blas_backend",
+        "tol", "inner_rtol", "inner_maxiter", "max_refine",
     ),
 )
-def _ir_jit(op16, op32, b, x0, tol, inner_rtol, inner_maxiter, max_refine,
-            blas_backend):
-    update = functools.partial(fused_update, backend=blas_backend)
+def _ir_jit(op16, op32, b, x0, tol, inner_rtol, inner_maxiter, max_refine):
     s = ir_loop(
-        op16.matvec, op32.matvec, dot_xla, update, b, x0,
+        op16.matvec, op32.matvec, dot_xla, fused_update, b, x0,
         tol=tol, inner_rtol=inner_rtol, inner_maxiter=inner_maxiter,
         max_refine=max_refine,
     )
@@ -150,11 +147,10 @@ def cg_solve_ir(
             "cg_solve_ir is the f32-contract mixed-precision path; for f64 "
             "use cg_solve(dtype=float64)"
         )
-    backend = resolve_backend(config.kernel)
     A = np.asarray(A, np.float32)
     n = A.shape[0]
-    op16 = DenseOperator.create(A, backend=backend, dtype=jnp.bfloat16)
-    op32 = DenseOperator.create(A, backend=backend, dtype=jnp.float32)
+    op16 = DenseOperator.create(A, dtype=jnp.bfloat16)
+    op32 = DenseOperator.create(A, dtype=jnp.float32)
     npad = op32.padded_n
     if op16.padded_n != npad:
         raise AssertionError("precision variants padded differently")
@@ -169,7 +165,6 @@ def cg_solve_ir(
     if npad != n:
         b = jnp.pad(b, (0, npad - n))
         x0 = jnp.pad(x0, (0, npad - n))
-    blas_backend = backend if npad % 128 == 0 else "xla"
     # config.maxiter caps the INNER solves (the analog of the reference's
     # per-solve ROWS cap); an explicit inner_maxiter overrides it.
     if inner_maxiter is not None:
@@ -181,7 +176,7 @@ def cg_solve_ir(
     res = _ir_jit(
         op16, op32, b, x0,
         float(config.tol), float(inner_rtol), int(inner_cap),
-        int(max_refine), blas_backend,
+        int(max_refine),
     )
     if npad != n:
         res = res._replace(x=res.x[:n])
@@ -192,12 +187,12 @@ def cg_solve_ir(
     jax.jit,
     static_argnames=(
         "mesh", "tol", "inner_rtol", "inner_maxiter", "max_refine", "axis",
-        "backend", "strategy",
+        "strategy",
     ),
 )
 def _sharded_ir_jit(
     A16, A32, b, x0, *, mesh, tol, inner_rtol, inner_maxiter, max_refine,
-    axis, backend, strategy,
+    axis, strategy,
 ):
     from jax.sharding import PartitionSpec as P
 
@@ -206,8 +201,8 @@ def _sharded_ir_jit(
     num = mesh.devices.size
 
     def run(A16_blk, A32_blk, b_blk, x_blk):
-        mv16 = _make_matvec(A16_blk, strategy, num, backend, axis)
-        mv32 = _make_matvec(A32_blk, strategy, num, backend, axis)
+        mv16 = _make_matvec(A16_blk, strategy, num, axis)
+        mv32 = _make_matvec(A32_blk, strategy, num, axis)
         dot, _, update = _make_reductions(axis)
         s = ir_loop(
             mv16, mv32, dot, update, b_blk, x_blk,
@@ -221,7 +216,6 @@ def _sharded_ir_jit(
         mesh=mesh,
         in_specs=(P(axis, None), P(axis, None), P(axis), P(axis)),
         out_specs=(P(axis), P(), P(), P()),
-        check_vma=(backend != "pallas"),
     )(A16, A32, b, x0)
 
 
@@ -245,7 +239,7 @@ def sharded_cg_solve_ir(
 
     from tpucg.comm.mesh import make_mesh
     from tpucg.io.partitioner import RowPartition, pad_identity_tail
-    from tpucg.solver.sharded import row_align
+    from tpucg.solver.sharded import ROW_ALIGN
 
     if config is None:
         config = CGConfig(**overrides)
@@ -260,11 +254,10 @@ def sharded_cg_solve_ir(
     if mesh.devices.ndim != 1:
         raise ValueError("sharded_cg_solve_ir runs on 1-D meshes")
     axis = mesh.axis_names[0]
-    backend = resolve_backend(config.kernel)
     A = np.asarray(A, np.float32)
     n = A.shape[0]
     part = RowPartition(
-        n=n, num_shards=mesh.devices.size, align=row_align(backend)
+        n=n, num_shards=mesh.devices.size, align=ROW_ALIGN
     )
     npad = part.n_padded
     Ap = pad_identity_tail(A, npad)
@@ -295,7 +288,6 @@ def sharded_cg_solve_ir(
         inner_maxiter=int(inner_cap),
         max_refine=int(max_refine),
         axis=axis,
-        backend=backend,
         strategy=config.strategy,
     )
     if npad != n:

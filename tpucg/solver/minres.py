@@ -7,10 +7,10 @@ negative, silently breaking the recurrence (the reference would emit NaNs,
 ||b - A x|| over the same Krylov space using a Lanczos three-term
 recurrence + Givens QR, and requires only symmetry.
 
-TPU shape: identical to CG's — one matvec, one optional preconditioner
+Shape: identical to CG's — one matvec, one optional preconditioner
 apply, two dots, and a handful of axpy-scale vector ops per lap, all inside
 one jitted ``lax.while_loop`` with static shapes; the Givens scalars live in
-registers. Works with any ``LinearOperator`` (dense Pallas/XLA GEMV, DIA,
+registers. Works with any ``LinearOperator`` (dense GEMV, DIA,
 stencil, WELL, ...).
 
 Preconditioning (SPD M only — MINRES runs Lanczos on the symmetrically
@@ -39,7 +39,6 @@ import jax.numpy as jnp
 
 from tpucg.config import CGConfig
 from tpucg.kernels.blas1 import dot_xla
-from tpucg.kernels.dispatch import resolve_backend
 from tpucg.solver.cg import CGResult, make_block_precond
 from tpucg.solver.operators import as_operator
 
@@ -159,7 +158,8 @@ def abs_inv_blocks(blocks: jax.Array, ridge: float = 1e-6) -> jax.Array:
     a = jnp.abs(lam)
     floor = ridge * jnp.max(a, axis=1, keepdims=True)
     a = jnp.maximum(a, jnp.maximum(floor, 1e-30))
-    minv = jnp.einsum("qij,qj,qkj->qik", q, 1.0 / a, q)
+    minv = jnp.einsum("qij,qj,qkj->qik", q, 1.0 / a, q,
+                      precision=jax.lax.Precision.HIGHEST)
     return 0.5 * (minv + jnp.transpose(minv, (0, 2, 1)))
 
 
@@ -174,10 +174,9 @@ def _make_minres_psolve(minv, npad: int) -> Optional[Callable]:
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tol", "maxiter", "blas_backend")
+    jax.jit, static_argnames=("tol", "maxiter")
 )
-def _minres_jit(op, b, x0, minv, tol, maxiter, blas_backend):
-    del blas_backend  # vector ops are plain fused XLA here
+def _minres_jit(op, b, x0, minv, tol, maxiter):
     matvec, dot = op.matvec, dot_xla
     psolve = _make_minres_psolve(minv, b.shape[0])
     s = minres_loop(matvec, dot, b, x0, tol=tol, maxiter=maxiter,
@@ -195,10 +194,10 @@ def _minres_jit(op, b, x0, minv, tol, maxiter, blas_backend):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "strategy", "backend", "tol", "maxiter",
+    static_argnames=("mesh", "strategy", "tol", "maxiter",
                      "axis", "precondition", "pc_block_size"),
 )
-def _sharded_minres_jit(A, b, x0, *, mesh, strategy, backend, tol, maxiter,
+def _sharded_minres_jit(A, b, x0, *, mesh, strategy, tol, maxiter,
                         axis, precondition="none", pc_block_size=32):
     from jax.sharding import PartitionSpec as P
 
@@ -213,7 +212,7 @@ def _sharded_minres_jit(A, b, x0, *, mesh, strategy, backend, tol, maxiter,
     tolv = jnp.asarray(tol, jnp.float32)
 
     def solve(A_blk, b_blk, x_blk):
-        mv = _make_matvec(A_blk, strategy, num, backend, axis)
+        mv = _make_matvec(A_blk, strategy, num, axis)
         dot, _, _ = _make_reductions(axis)
         psolve = None
         if precondition == "jacobi":
@@ -235,15 +234,14 @@ def _sharded_minres_jit(A, b, x0, *, mesh, strategy, backend, tol, maxiter,
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P(axis)),
         out_specs=(P(axis), P(), P(), P()),
-        check_vma=(backend != "pallas"),
     )(A, b, x0)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "backend", "tol", "maxiter", "precondition"),
+    static_argnames=("mesh", "tol", "maxiter", "precondition"),
 )
-def _sharded2d_minres_jit(A, b, x0, minv, *, mesh, backend, tol, maxiter,
+def _sharded2d_minres_jit(A, b, x0, minv, *, mesh, tol, maxiter,
                           precondition="none"):
     """MINRES over the 2-D SUMMA decomposition: the same all_gather +
     partial-GEMV + psum_scatter matvec as 2-D CG, with the Lanczos dots
@@ -256,7 +254,7 @@ def _sharded2d_minres_jit(A, b, x0, minv, *, mesh, backend, tol, maxiter,
     tolv = jnp.asarray(tol, jnp.float32)
 
     def solve(A_blk, b_blk, x_blk, minv_blk):
-        mv = _matvec_2d(A_blk, r_ax, c_ax, backend)
+        mv = _matvec_2d(A_blk, r_ax, c_ax)
         dot = lambda u, v: jax.lax.psum(dot_xla(u, v), (r_ax, c_ax))
         psolve = None
         if precondition == "jacobi":
@@ -274,18 +272,17 @@ def _sharded2d_minres_jit(A, b, x0, minv, *, mesh, backend, tol, maxiter,
         mesh=mesh,
         in_specs=(P(r_ax, c_ax), vec, vec, vec),
         out_specs=(vec, P(), P(), P()),
-        check_vma=(backend != "pallas"),
     )(A, b, x0, minv)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "tol", "maxiter", "axis", "kind", "m",
-                     "m_padded", "precondition", "offsets", "backend"),
+                     "m_padded", "precondition", "offsets"),
 )
 def _sharded_operator_minres_jit(
     op_arrays, b, x0, minv, *, mesh, tol, maxiter, axis, kind, m=None,
-    m_padded=None, precondition="none", offsets=None, backend="xla",
+    m_padded=None, precondition="none", offsets=None,
 ):
     """MINRES over a sharded sparse/stencil operator — the same per-shard
     matvec closures as ``_sharded_operator_cg_jit`` (Poisson slab halo, DIA
@@ -297,7 +294,6 @@ def _sharded_operator_minres_jit(
         _make_reductions,
         _operator_matvec,
         _operator_specs,
-        _operator_uses_pallas,
     )
 
     num = mesh.devices.size
@@ -305,7 +301,7 @@ def _sharded_operator_minres_jit(
 
     def solve(op_blk, b_blk, x_blk, minv_blk):
         mv = _operator_matvec(
-            kind, op_blk, axis, num, m, m_padded, offsets, backend
+            kind, op_blk, axis, num, m, m_padded, offsets
         )
         dot, _, _ = _make_reductions(axis)
         psolve = (
@@ -323,7 +319,6 @@ def _sharded_operator_minres_jit(
         mesh=mesh,
         in_specs=(_operator_specs(kind, axis), vec, vec, vec),
         out_specs=(vec, P(), P(), P()),
-        check_vma=not _operator_uses_pallas(kind, m, m_padded, mesh, backend),
     )(op_arrays, b, x0, minv)
 
 
@@ -403,7 +398,7 @@ def sharded_minres_solve(
 
     from tpucg.comm.mesh import make_mesh
     from tpucg.io.partitioner import RowPartition
-    from tpucg.solver.sharded import distribute_system, row_align
+    from tpucg.solver.sharded import distribute_system, ROW_ALIGN
 
     if config is None:
         config = CGConfig(**overrides)
@@ -434,15 +429,14 @@ def sharded_minres_solve(
                 "precondition='block_jacobi' is supported on 1-D meshes "
                 "(the 2-D decomposition stores column-permuted blocks)"
             )
-        backend = resolve_backend(config.kernel)
         A = np.asarray(A, np.float32)
         n = A.shape[0]
         Ad, bd, x0d, minvd, npad = _prepare_sharded2d(
-            A, b, x0, mesh, config, backend
+            A, b, x0, mesh, config
         )
         maxiter = config.maxiter if config.maxiter is not None else n
         x, k, rn, done = _sharded2d_minres_jit(
-            Ad, bd, x0d, minvd, mesh=mesh, backend=backend,
+            Ad, bd, x0d, minvd, mesh=mesh,
             tol=float(config.tol), maxiter=int(maxiter),
             precondition=config.precondition,
         )
@@ -455,11 +449,10 @@ def sharded_minres_solve(
     if isinstance(A, _operator_types()):
         return _sharded_operator_minres(A, b, x0, mesh, config)
     axis = mesh.axis_names[0]
-    backend = resolve_backend(config.kernel)
     A = np.asarray(A, np.float32)
     n = A.shape[0]
     part = RowPartition(n=n, num_shards=mesh.devices.size,
-                        align=row_align(backend))
+                        align=ROW_ALIGN)
     if config.precondition == "block_jacobi":
         block_rows = part.n_padded // mesh.devices.size
         if block_rows % int(config.pc_block_size):
@@ -474,7 +467,7 @@ def sharded_minres_solve(
     )
     maxiter = config.maxiter if config.maxiter is not None else n
     x, k, rn, done = _sharded_minres_jit(
-        Ad, bd, x0d, mesh=mesh, strategy=config.strategy, backend=backend,
+        Ad, bd, x0d, mesh=mesh, strategy=config.strategy,
         tol=float(config.tol), maxiter=int(maxiter), axis=axis,
         precondition=config.precondition,
         pc_block_size=int(config.pc_block_size),
@@ -522,18 +515,7 @@ def minres_solve(
         )
     if jnp.dtype(config.dtype) != jnp.float32:
         raise ValueError("minres_solve is float32-only")
-    backend = resolve_backend(config.kernel)
-    if config.kernel == "auto" and config.precondition == "jacobi":
-        # MEASURED dispatch rule (round 4): the Pallas dense GEMV composed
-        # with the elementwise 1/|d| psolve runs 0.292 ms/lap at n=4096 vs
-        # the XLA GEMV's 0.115 — the real vector-multiply fusion feeding
-        # the Pallas custom call is the cliff (an identity psolve, which
-        # XLA's simplifier elides, is fast; the block-|B|^-1 einsum psolve
-        # is also fast). Until that composition is fixed, "auto" prefers
-        # the XLA GEMV for elementwise-preconditioned dense MINRES; an
-        # explicit kernel="pallas" still overrides.
-        backend = "xla"
-    op = as_operator(A, backend=backend)
+    op = as_operator(A)
     n, npad = op.n, op.padded_n
     b = jnp.asarray(b, jnp.float32)
     if b.shape != (n,):
@@ -552,8 +534,7 @@ def minres_solve(
         bs = int(config.pc_block_size)
         minv = abs_inv_blocks(op.diagonal_blocks(bs))
     maxiter = config.maxiter if config.maxiter is not None else n
-    res = _minres_jit(op, b, x0, minv, float(config.tol), int(maxiter),
-                      backend)
+    res = _minres_jit(op, b, x0, minv, float(config.tol), int(maxiter))
     if npad != n:
         res = res._replace(x=res.x[:n])
     return res

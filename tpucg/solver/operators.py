@@ -2,11 +2,12 @@
 
 The reference's CG is welded to a dense row-major matrix (``matVec``,
 ``serialConjugate.c:109-120``). tpucg decouples the iteration from the
-operator: anything with a ``matvec`` is solvable — dense (Pallas GEMV),
-ELLPACK sparse (gather SpMV), or matrix-free stencils (7-point Poisson).
+operator: anything with a ``matvec`` is solvable — dense (GEMV), banded
+(DIA), blocky (BSR), irregular sparse (ELL, WELL), or matrix-free stencils
+(7-point Poisson).
 Operators are registered JAX pytrees so they flow through ``jit`` /
 ``lax.while_loop`` with their arrays as traced leaves and their structure
-(shapes, backend choice) as static metadata.
+(shapes) as static metadata.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpucg.io.partitioner import pad_identity_tail, round_up
-from tpucg.kernels.matvec import MATVEC_ALIGN, matvec
+from tpucg.io.partitioner import round_up
+from tpucg.kernels.matvec import matvec_xla
 from tpucg.kernels.spmv import bsr_ell_spmv, dia_spmv, ell_spmv
 from tpucg.sparse.formats import (
     BSRMatrix,
@@ -98,18 +99,15 @@ def _blocks_from_diag_data(offsets, data, bs: int) -> jax.Array:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
-    """Dense SPD matrix. Pads once at construction to the Pallas alignment
-    contract with an identity tail block (see ``tpucg.io.partitioner``), so the
-    hot matvec never re-pads."""
+    """Dense SPD matrix; the matvec is XLA's GEMV at HIGHEST precision."""
 
     A: jax.Array
     n: int = dataclasses.field(metadata=dict(static=True))
-    backend: str = dataclasses.field(default="xla", metadata=dict(static=True))
 
     @classmethod
-    def create(cls, A, backend: str = "xla", dtype=np.float32) -> "DenseOperator":
+    def create(cls, A, dtype=np.float32) -> "DenseOperator":
         """``dtype`` is the device STORAGE dtype of A: float32 (the reference
-        contract), bfloat16 (halved HBM traffic, ~2x faster matvec; f32
+        contract), bfloat16 (half the bytes streamed per matvec; f32
         accumulation — an extension), or float64 (needs x64 mode)."""
         dtype = jnp.dtype(dtype)
         A = np.asarray(A)
@@ -121,18 +119,14 @@ class DenseOperator(LinearOperator):
         n = A.shape[0]
         if A.shape != (n, n):
             raise ValueError(f"A must be square, got {A.shape}")
-        if backend == "pallas" and dtype not in (jnp.float32, jnp.bfloat16):
-            backend = "xla"
-        npad = round_up(n, np.lcm(*MATVEC_ALIGN)) if backend == "pallas" else n
-        A = pad_identity_tail(A, npad)
-        return cls(A=jnp.asarray(A, dtype=dtype), n=n, backend=backend)
+        return cls(A=jnp.asarray(A, dtype=dtype), n=n)
 
     @property
     def padded_n(self) -> int:
         return self.A.shape[0]
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        return matvec(self.A, x, backend=self.backend)
+        return matvec_xla(self.A, x)
 
     def diagonal(self) -> jax.Array:
         # Identity pad tail -> 1.0, safe to invert; bf16 storage upcast.
@@ -197,41 +191,24 @@ class EllOperator(LinearOperator):
 class DiaOperator(LinearOperator):
     """Diagonal-storage banded operator (device form of DIA).
 
-    The TPU-fast general sparse path: SpMV is a static shift-and-add per
-    diagonal, no gather. Offsets are static metadata so the compiler sees
-    fixed shift shapes. Two backends (see ``kernels.spmv``):
-
-    - ``pallas`` (default where supported): ONE fused in-VMEM pass over all
-      diagonals — the XLA lowering materializes a shifted HBM temporary per
-      diagonal, ~3x the streaming traffic (measured 90.7 us vs an 11.5 us
-      roofline at m=64 Poisson on v5e);
-    - ``xla``: the concat/pad form, dtype-generic, any shape.
-
-    ``from_dia`` pads the flat length to a 128 multiple (identity tail on
-    the main diagonal) so the Pallas lane tiling applies; solvers handle
-    ``padded_n != n`` exactly like the dense operator's padding.
+    ``data`` is the canonical (ndiag, n) layout: ``data[d, i] =
+    A[i, i + offsets[d]]``. SpMV is a static shift-and-add per diagonal, no
+    gather (``kernels.spmv.dia_spmv``). Offsets are static metadata so the
+    compiler sees fixed shift shapes.
     """
 
-    # Canonical (ndiag, padded_n), or — when ``interleaved`` — the Pallas
-    # kernel's (padded_n//128, ndiag*128) packing (kernels.spmv.dia_interleave).
     data: jax.Array
     offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     n: int = dataclasses.field(metadata=dict(static=True))
-    backend: str = dataclasses.field(default="auto", metadata=dict(static=True))
-    interleaved: bool = dataclasses.field(
-        default=False, metadata=dict(static=True)
-    )
 
     @classmethod
-    def from_dia(cls, dia: DIAMatrix, backend: str = "auto",
+    def from_dia(cls, dia: DIAMatrix,
                  storage_dtype=np.float32) -> "DiaOperator":
         """``storage_dtype=bfloat16`` stores the diagonal slab in bfloat16 —
-        half the HBM footprint and streaming bytes of the SpMV (the Pallas
-        kernel upcasts in-vreg and accumulates in f32; the same
-        storage-dtype extension as ``DenseOperator.create``). The solve
-        satisfies the f32 contract on the bf16-rounded system."""
-        from tpucg.kernels.spmv import LANE, dia_interleave, dia_supported
-
+        half the footprint and streamed bytes of the SpMV (products upcast
+        and accumulate in f32; the same storage-dtype extension as
+        ``DenseOperator.create``). The solve satisfies the f32 contract on
+        the bf16-rounded system."""
         if jnp.dtype(storage_dtype) not in (jnp.float32, jnp.bfloat16):
             raise ValueError(
                 f"storage_dtype must be float32 or bfloat16, "
@@ -239,38 +216,13 @@ class DiaOperator(LinearOperator):
             )
         data = np.asarray(dia.data)
         if jnp.dtype(storage_dtype) == jnp.bfloat16:
-            data = data.astype(np.float32)  # canonical source for the cast
-        n = dia.shape[0]
-        offsets = tuple(int(o) for o in dia.offsets)
-        # Like DenseOperator.create, padding is a Pallas-alignment concern:
-        # backend="xla" keeps the logical shape (shift-and-add needs none).
-        npad = round_up(n, LANE) if backend != "xla" else n
-        if npad != n and 0 in offsets:
-            padded = np.zeros((data.shape[0], npad), dtype=data.dtype)
-            padded[:, :n] = data
-            padded[offsets.index(0), n:] = 1.0  # identity tail (partitioner)
-            data = padded
-        # One layout, chosen once: the interleaved packing when the Pallas
-        # kernel applies (duplicating both layouts would double HBM).
-        interleaved = (
-            backend != "xla"
-            and data.dtype == np.float32
-            and dia_supported(data.shape[1], offsets)
-        )
-        if backend == "pallas" and not interleaved:
-            raise ValueError(
-                f"pallas DIA unsupported for n={data.shape[1]}/"
-                f"offsets={offsets}/dtype={data.dtype}"
-            )
-        if interleaved:
-            data = dia_interleave(data)
-        if jnp.dtype(storage_dtype) == jnp.bfloat16:
             import ml_dtypes
 
-            data = np.asarray(data).astype(ml_dtypes.bfloat16)
+            data = data.astype(np.float32).astype(ml_dtypes.bfloat16)
         return cls(
-            data=jnp.asarray(data), offsets=offsets, n=n, backend=backend,
-            interleaved=interleaved,
+            data=jnp.asarray(data),
+            offsets=tuple(int(o) for o in dia.offsets),
+            n=dia.shape[0],
         )
 
     @property
@@ -279,54 +231,20 @@ class DiaOperator(LinearOperator):
 
     @property
     def padded_n(self) -> int:
-        if self.interleaved:
-            from tpucg.kernels.spmv import LANE
-
-            return self.data.shape[0] * LANE
         return self.data.shape[1]
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        from tpucg.kernels.dispatch import resolve_backend
-        from tpucg.kernels.spmv import (
-            dia_spmv_interleaved_xla,
-            dia_spmv_pallas,
-        )
-
-        if not self.interleaved:
-            return dia_spmv(self.data, self.offsets, x)
-        # "auto" defers to the platform default (off-TPU, interpreted Pallas
-        # would be orders of magnitude slower than XLA); "pallas" forces it.
-        want = (
-            resolve_backend("auto") if self.backend == "auto" else self.backend
-        )
-        if want == "pallas" and x.dtype == jnp.float32:
-            return dia_spmv_pallas(self.data, self.offsets, x)
-        return dia_spmv_interleaved_xla(self.data, self.offsets, x)
+        return dia_spmv(self.data, self.offsets, x)
 
     def diagonal(self) -> jax.Array:
-        from tpucg.kernels.spmv import LANE
-
         # bf16 storage upcasts (1/d must be f32); f64 stays f64.
         up = jnp.promote_types(self.data.dtype, jnp.float32)
         if 0 not in self.offsets:
             return jnp.zeros(self.padded_n, up)
-        d0 = self.offsets.index(0)
-        if self.interleaved:
-            return jax.lax.dynamic_slice(
-                self.data, (0, d0 * LANE), (self.data.shape[0], LANE)
-            ).reshape(-1).astype(up)
-        return self.data[d0].astype(up)
+        return self.data[self.offsets.index(0)].astype(up)
 
     def diagonal_blocks(self, bs: int) -> jax.Array:
-        data = self.data
-        if self.interleaved:
-            # One-time setup (host round-trip is fine and keeps the
-            # inverse transpose in its single canonical home beside the
-            # packer, kernels.spmv.dia_deinterleave).
-            from tpucg.kernels.spmv import dia_deinterleave
-
-            data = jnp.asarray(dia_deinterleave(data))
-        return _blocks_from_diag_data(self.offsets, data, bs)
+        return _blocks_from_diag_data(self.offsets, self.data, bs)
 
 
 @jax.tree_util.register_dataclass
@@ -392,11 +310,11 @@ class BsrOperator(LinearOperator):
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class WellOperator(LinearOperator):
-    """Windowed gather-ELL operator — the TPU-honest irregular-sparse path.
+    """Windowed gather-ELL operator — the irregular-sparse path.
 
     Device form of ``tpucg.sparse.well.WellMatrix``: nonzeros packed into
     128-slot sublane rows whose columns share one 128-wide window, applied
-    by x-row-gather + Mosaic lane-gather + one-hot MXU routing (see
+    by a window-row gather, a lane gather and a scatter-add (see
     ``kernels.gather_spmv``). Replaces scalar-gather ELL as the fallback for
     matrices that are neither banded (DIA) nor blocky (BSR).
     """
@@ -410,14 +328,13 @@ class WellOperator(LinearOperator):
     n: int = dataclasses.field(metadata=dict(static=True))
     bg: int = dataclasses.field(metadata=dict(static=True))
     nsg: int = dataclasses.field(metadata=dict(static=True))
-    backend: str = dataclasses.field(default="auto", metadata=dict(static=True))
     # Optional (nb, bs, bs) raw diagonal blocks for block Jacobi, built
     # host-side from the source CSR (the packed WELL slabs are not
     # addressable by (row, col); see ``diagonal_blocks``).
     dblk: jax.Array = None
 
     @classmethod
-    def from_csr(cls, csr: CSRMatrix, backend: str = "auto",
+    def from_csr(cls, csr: CSRMatrix,
                  storage_dtype=np.float32, pc_block_size=None,
                  **well_kwargs) -> "WellOperator":
         """``pc_block_size`` pre-extracts the (nb, bs, bs) diagonal blocks
@@ -434,17 +351,15 @@ class WellOperator(LinearOperator):
                 csr, int(pc_block_size), npad=round_up(csr.shape[0], 128)
             ))
         return cls.from_well(csr_to_well(csr, **well_kwargs),
-                             backend=backend, storage_dtype=storage_dtype,
-                             dblk=dblk)
+                             storage_dtype=storage_dtype, dblk=dblk)
 
     @classmethod
-    def from_well(cls, well, backend: str = "auto",
-                  storage_dtype=np.float32, dblk=None) -> "WellOperator":
+    def from_well(cls, well, storage_dtype=np.float32,
+                  dblk=None) -> "WellOperator":
         """``storage_dtype=bfloat16`` stores the packed VALUES in bfloat16
-        (3.5 streamed bytes per slot instead of 5.5 — the value slab is
-        the dominant stream; lane indices stay int8, the gathered window
-        f32); products upcast in-vreg and accumulate in f32. The solve
-        satisfies the f32 contract on the bf16-rounded system."""
+        (lane indices stay int8, the gathered window f32); products upcast
+        and accumulate in f32. The solve satisfies the f32 contract on the
+        bf16-rounded system."""
         if jnp.dtype(storage_dtype) not in (jnp.float32, jnp.bfloat16):
             raise ValueError(
                 f"storage_dtype must be float32 or bfloat16, "
@@ -465,7 +380,6 @@ class WellOperator(LinearOperator):
             n=well.shape[0],
             bg=well.groups_per_super,
             nsg=well.n_supergroups,
-            backend=backend,
             dblk=dblk,
         )
 
@@ -479,53 +393,23 @@ class WellOperator(LinearOperator):
         return self.padded_n // 128
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        import jax as _jax
+        from tpucg.kernels.gather_spmv import well_spmv_xla
 
-        from tpucg.kernels.dispatch import resolve_backend
-        from tpucg.kernels.gather_spmv import well_spmv, well_spmv_xla
-
-        x2 = x.reshape(self.n_groups, 128)
-        want = (
-            resolve_backend("auto") if self.backend == "auto" else self.backend
+        y2 = well_spmv_xla(
+            self.vals, self.lidx, self.gidl, self.wrow, self.sgb,
+            x.reshape(self.n_groups, 128), bg=self.bg, nsg=self.nsg,
         )
-        use_pallas = want == "pallas" and x.dtype == jnp.float32
-        if not use_pallas and _jax.default_backend() == "tpu":
-            # The scatter-add in the XLA fallback aborts the TPU compiler
-            # (fusion of a lane-gather into SortedScatterEmitter fails a
-            # CHECK); the fallback exists for CPU/interpret runs only.
-            raise ValueError(
-                "the WELL XLA fallback (scatter-add) is not TPU-compilable; "
-                "use backend='pallas' (float32) on TPU"
-            )
-        fn = well_spmv if use_pallas else well_spmv_xla
-        y2 = fn(self.vals, self.lidx, self.gidl, self.wrow, self.sgb, x2,
-                bg=self.bg, nsg=self.nsg)
         return y2.reshape(-1)[: self.padded_n]
 
     def matvec_multi(self, X: jax.Array) -> jax.Array:
         """A @ X for X (padded_n, k) — the batched SpMM the multi/block
-        solvers apply per lap.
-
-        Implementation: ``vmap`` of the single-RHS Pallas kernel. That is
-        a MEASURED choice, not a shortcut: a hand-fused SpMM kernel
-        (matrix streamed once, (k*128)-wide window gathers, scratch +
-        one wide one-hot matmul) was built and timed against it on chip
-        and LOST everywhere — 450-488 us vs 244-371 us at n=100k k=8,
-        614 vs 253 us/RHS at n=1M k=8. Mosaic's kernel batching adds the
-        lane axis as the MINOR grid dimension and skips re-fetching
-        blocks whose index-map output is unchanged between consecutive
-        grid steps, so the vals/lidx stream is already amortized across
-        lanes (per-RHS apply cost drops 1.4x at k=2 and ~2-3x at k=8
-        vs a single-RHS apply) with mature pipeline overlap the
-        hand-rolled scratch kernel could not match. The symbol exists so
-        the matrix-form lockstep loop (``multi_cg_loop``), block CG, and
-        the sharded WELL decomposition share one batched-apply API.
-        """
+        solvers apply per lap: ``vmap`` of the single-RHS product, so the
+        matrix-form lockstep loop (``multi_cg_loop``), block CG, and the
+        sharded WELL decomposition share one batched-apply API."""
         return jax.vmap(self.matvec, in_axes=1, out_axes=1)(X)
 
     def diagonal(self) -> jax.Array:
-        # Built host-side at from_well time: the device scatter-add this
-        # would need is not TPU-compilable (see matvec).
+        # Built host-side at from_well time from the packed slots.
         return self.dvec
 
     def diagonal_blocks(self, bs: int) -> jax.Array:
@@ -550,38 +434,17 @@ class PoissonOperator(LinearOperator):
     """Matrix-free 3-D 7-point Laplacian on an m^3 grid (Dirichlet).
 
     Identical to ``tpucg.io.generator.poisson3d_csr`` but applied as a
-    stencil: 6*u - sum(in-grid neighbors), no gather, no stored matrix — the
-    speed-of-light form on TPU. When the grid is lane-tileable the matvec is
-    the single-pass Pallas kernel (``kernels.stencil``); otherwise the XLA
-    concat form (which materializes shifted temporaries, ~6x more traffic).
+    stencil: 6*u - sum(in-grid neighbors), no gather, no stored matrix. The
+    matvec is XLA's concat/shift form on every platform.
     """
 
     m: int = dataclasses.field(metadata=dict(static=True))
-    kernel: str = dataclasses.field(default="auto", metadata=dict(static=True))
 
     @property
     def n(self) -> int:  # type: ignore[override]
         return self.m ** 3
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        from tpucg.kernels.stencil import poisson3d_pallas, stencil_supported
-
-        # The Pallas kernel is float32-only; f64 (and any other dtype) takes
-        # the XLA form, which is dtype-generic.
-        if (
-            self.kernel in ("auto", "pallas")
-            and stencil_supported(self.m)
-            and x.dtype == jnp.float32
-        ):
-            return poisson3d_pallas(x, self.m)
-        if self.kernel == "pallas":
-            raise ValueError(
-                f"pallas stencil unsupported for m={self.m}/dtype={x.dtype} "
-                "(needs (m*m) % 128 == 0 and float32)"
-            )
-        return self._matvec_xla(x)
-
-    def _matvec_xla(self, x: jax.Array) -> jax.Array:
         m = self.m
         u = x.reshape(m, m, m)
         y = 6.0 * u
@@ -624,7 +487,6 @@ class PoissonOperator(LinearOperator):
 
 def best_sparse_operator(
     csr: CSRMatrix,
-    backend: str = "auto",
     max_diags: int = 64,
     dia_fill_cap: float = 4.0,
     blocksize: int = 8,
@@ -632,23 +494,20 @@ def best_sparse_operator(
     fallback: str = "well",
     pc_block_size=None,
 ) -> LinearOperator:
-    """Auto-promote a CSR matrix to the most TPU-honest device format.
+    """Auto-promote a CSR matrix to a structured device format.
 
-    Scalar-gather ELL is the WORST TPU sparse path (~240x slower than
-    shift-and-add for banded structure — gather is the wrong primitive,
-    CLAUDE.md); this picks, in order:
+    Picks, in order:
 
     1. **DIA** when the matrix is banded: at most ``max_diags`` distinct
        diagonals and dense storage (ndiag * n) within ``dia_fill_cap`` x nnz.
-       Gather-free fused Pallas shift-and-add.
+       Gather-free shift-and-add.
     2. **BSR** when re-blocking into (blocksize x blocksize) dense tiles
        inflates stored entries by at most ``bsr_fill_cap``: each gather then
-       moves bs elements per index and the tile products are dense VPU work.
+       moves bs elements per index and the tile products are dense.
        (n is identity-padded to the blocksize if needed.)
-    3. **WELL** otherwise (square matrices) — windowed gather-ELL, the
-       genuinely-irregular path built from row-DMA + lane-gather
-       (``kernels.gather_spmv``); ``fallback="ell"`` restores the scalar
-       ELL for comparison (its ~0.1 Gnnz/s cost is documented in RESULTS.md).
+    3. **WELL** otherwise (square matrices) — windowed gather-ELL
+       (``kernels.gather_spmv``); ``fallback="ell"`` takes scalar ELL
+       instead.
     """
     from tpucg.sparse.formats import csr_to_bsr, csr_to_dia
 
@@ -656,9 +515,7 @@ def best_sparse_operator(
     nnz = max(csr.nnz, 1)
     offs = np.unique(csr.indices.astype(np.int64) - csr.to_coo().row)
     if offs.size <= max_diags and offs.size * n <= dia_fill_cap * nnz:
-        return DiaOperator.from_dia(
-            csr_to_dia(csr, max_diags=max_diags), backend=backend
-        )
+        return DiaOperator.from_dia(csr_to_dia(csr, max_diags=max_diags))
     bs = blocksize
     csr_b = csr
     if n % bs:
@@ -691,12 +548,11 @@ def best_sparse_operator(
         # pc_block_size: see WellOperator.from_csr — pre-extracts the
         # diagonal blocks so precondition='block_jacobi' is available
         # (DIA/BSR/dense extract theirs from addressable storage).
-        return WellOperator.from_csr(csr, backend=backend,
-                                     pc_block_size=pc_block_size)
+        return WellOperator.from_csr(csr, pc_block_size=pc_block_size)
     return EllOperator.from_csr(csr)
 
 
-def as_operator(A, backend: str = "xla", dtype=np.float32) -> LinearOperator:
+def as_operator(A, dtype=np.float32) -> LinearOperator:
     """Coerce a dense array / CSR / ELL / BSR / operator into a LinearOperator.
 
     ``dtype`` applies to dense storage only (sparse containers carry their own
@@ -715,11 +571,8 @@ def as_operator(A, backend: str = "xla", dtype=np.float32) -> LinearOperator:
     if isinstance(A, WellMatrix):
         return WellOperator.from_well(A)
     if isinstance(A, DIAMatrix):
-        # "auto" picks the fused Pallas kernel whenever supported and falls
-        # back to the XLA shift-and-add otherwise (the ``backend`` argument
-        # here keeps its dense-GEMV meaning).
         return DiaOperator.from_dia(A)
     arr = np.asarray(A) if not isinstance(A, jax.Array) else A
     if arr.ndim == 2:
-        return DenseOperator.create(arr, backend=backend, dtype=dtype)
+        return DenseOperator.create(arr, dtype=dtype)
     raise TypeError(f"cannot interpret {type(A)!r} as a linear operator")

@@ -3,12 +3,12 @@ FEM-class irregular systems.
 
 The reference is unpreconditioned CG (``serialConjugate.c:180-259``); tpucg's
 point/block-Jacobi and Neumann-poly preconditioners bound the per-lap cost
-but not the LAP COUNT on mesh Laplacians: the measured FEM P1 n=300k solve is
-1718 jacobi laps at a 91%-of-roofline kernel (RESULTS.md) — iteration count,
-not bandwidth, is the entire cost. What CG lacks there is the LOW-frequency
+but not the LAP COUNT on mesh Laplacians: the FEM P1 n=300k solve takes
+~1700 jacobi laps and n=1M ~2250 (PERF.md) — iteration count, not
+bandwidth, is the cost to cut. What CG lacks there is the LOW-frequency
 end of the spectrum; a coarse-space correction supplies exactly that.
 
-TPU-honest construction (contrast classic AMG, whose C/F splitting,
+Gather-free construction (contrast classic AMG, whose C/F splitting,
 triangular smoothers, and per-level sparse hierarchies are gather/scatter
 machines XLA cannot tile):
 
@@ -16,12 +16,12 @@ machines XLA cannot tile):
   each). After a locality-restoring ordering (mesh numbering or ``--rcm``),
   consecutive rows are spatially adjacent, so contiguous blocks are honest
   spatial aggregates — and the transfer operators vanish into layout:
-  restriction is ``r.reshape(nc, agg).sum(axis=1)`` (one VPU reduction),
+  restriction is ``r.reshape(nc, agg).sum(axis=1)`` (one reduction),
   prolongation a broadcast — ZERO gathers, zero stored P.
 - **The Galerkin coarse operator Ac = P^T A P** is assembled host-side from
   the CSR coordinates in one ``np.add.at`` pass (entries pool by
   (row//agg, col//agg)) and INVERTED ONCE in f64; the per-lap coarse solve
-  is then a single dense (nc, nc) GEMV — MXU work, no sparse triangular
+  is then a single dense (nc, nc) GEMV, no sparse triangular
   solves anywhere.
 - **Smoothing is damped Jacobi** (w D^-1, w = omega / lambda_max(D^-1 A),
   the estimate riding the same matvec/dot closures as the solve, so the
@@ -219,7 +219,7 @@ def build_two_level(
         cop = best_sparse_operator(csr_c)
         # Inner aggregation ratio sized so the NEXT level lands at
         # coarse_max: reusing the (aggressive) top-level agg makes a weak
-        # inner hierarchy — measured on chip at FEM n=100k/agg=64/
+        # inner hierarchy — measured at FEM n=100k/agg=64/
         # coarse_max=256: inner agg=64 cost 357 outer laps vs the dense
         # inverse's 128; the ratio-sized inner agg (8 here) restores
         # near-parity. Deepest level is then an exact f64 inverse of at

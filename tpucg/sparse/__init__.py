@@ -1,4 +1,4 @@
-"""Sparse matrix formats (host-side containers + TPU-friendly device forms)."""
+"""Sparse matrix formats (host-side containers + device forms)."""
 
 from tpucg.sparse.formats import (
     BSRMatrix,

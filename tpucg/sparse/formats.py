@@ -4,8 +4,8 @@ The reference has no sparse support (dense text files only); BASELINE.json's
 north star adds "CSR/COO/BSR sparse forms" with the 3-D Poisson Laplacian as
 the sparse workload. tpucg's device-side format of choice is ELLPACK (`EllMatrix`):
 every row padded to the same nnz, giving static shapes and a gather+multiply+
-row-sum SpMV that XLA/Pallas tile cleanly — CSR's ragged rows force
-data-dependent control flow, which is hostile to the TPU compilation model.
+row-sum SpMV with static shapes — CSR's ragged rows force data-dependent
+control flow.
 COO/CSR remain the host-side interchange formats.
 """
 
@@ -105,14 +105,13 @@ class EllMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class DIAMatrix:
-    """Diagonal (DIA) storage: the TPU-native format for banded matrices.
+    """Diagonal (DIA) storage: the device format for banded matrices.
 
     ``offsets`` (ndiag,) sorted diagonal offsets (0 = main, +k super, -k sub);
     ``data`` (ndiag, n) with ``data[d, i] = A[i, i + offsets[d]]`` (entries
     whose column falls outside [0, n) are 0). SpMV needs NO gather — it is a
     shift-and-add over dense rows (``y += data[d] * shift(x, offsets[d])``),
-    pure VPU + streaming, which measures ~240x faster than scalar-gather ELL
-    on TPU for the 7-point Poisson operator.
+    pure streaming.
     """
 
     offsets: np.ndarray
@@ -185,10 +184,9 @@ class BSRMatrix:
 
     ``indptr`` (n_block_rows + 1), ``indices`` (nnzb) block-column ids,
     ``data`` (nnzb, bs, bs). The shape is the *logical* (rows, cols); rows and
-    cols must be multiples of bs. BSR is the TPU-friendly sparse form for
-    banded/stencil systems: each block is a small dense tile the VPU/MXU can
-    process whole, and per-block-row widths are far more uniform than
-    per-scalar-row nnz.
+    cols must be multiples of bs. BSR suits banded/stencil systems: each
+    block is a small dense tile processed whole, and per-block-row widths
+    are far more uniform than per-scalar-row nnz.
     """
 
     indptr: np.ndarray

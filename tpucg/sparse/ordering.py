@@ -1,6 +1,6 @@
 """Bandwidth/locality-reducing orderings for irregular sparse matrices.
 
-TPU sparse kernels are window-based (WELL gathers 128-wide windows of x per
+tpucg's sparse formats are window-based (WELL gathers 128-wide windows of x per
 sublane row, DIA wants a narrow band): the fewer distinct 128-column windows
 the rows of a 128-row group touch, the higher the packing fill and the less
 gathered-window traffic. ``rcm_order`` is a vectorized level-set variant of
@@ -54,7 +54,7 @@ def strength_order(csr: CSRMatrix, theta: float = 0.25) -> np.ndarray:
 
     Classic AMG coarsens anisotropic operators ALONG the strong direction
     (semi-coarsening); tpucg's two-level preconditioner aggregates
-    contiguous index blocks (``twolevel.py``), so the TPU-honest way to get
+    contiguous index blocks (``twolevel.py``), so the gather-free way to get
     the same effect is an ORDERING: keep only off-diagonal entries with
     ``|a_ij| >= theta * sqrt(|a_ii a_jj|)`` (the standard strength-of-
     connection test), symmetrize, and RCM the filtered graph. Weak-direction

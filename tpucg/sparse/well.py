@@ -1,13 +1,11 @@
-"""WELL — windowed gather-ELLPACK, the TPU-honest irregular-sparse format.
+"""WELL — windowed gather-ELLPACK, the irregular-sparse format.
 
 The reference's sparse story is "do the hot kernel right per platform"
 (its dense analog is ``serialConjugate.c:109-120``); for matrices that are
-neither banded (DIA) nor blocky (BSR), the previous fallback was scalar-gather
-ELL, measured ~2000x off the in-family roofline (RESULTS.md) because TPUs
-have no scalar gather — the only fast data-dependent addressing primitives
-are (a) an XLA row-gather (DMA of whole 128-lane rows) and (b) the Mosaic
-lane-gather (``take_along_axis`` along the 128-wide lane dimension, a VPU
-vreg shuffle). WELL is built from exactly those two:
+neither banded (DIA) nor blocky (BSR), the fallback before WELL was
+scalar-gather ELL. WELL replaces per-entry gathers with two coarser ones:
+(a) a row gather of whole 128-wide windows of x and (b) a gather along the
+128-wide lane dimension inside each window (``take_along_axis``):
 
 - The vector x lives as ``x2 = x.reshape(G, 128)`` — row g is the 128-wide
   **window** of columns [128g, 128(g+1)).
@@ -15,32 +13,24 @@ vreg shuffle). WELL is built from exactly those two:
   sublane row has (1) its column inside ONE window and (2) its row inside
   ONE output group of 128 rows, at lane position ``row % 128``.
 - Sublane rows are laid out so every aligned **8-sublane chunk** shares one
-  window (``wrow`` is per-chunk): the XLA row-gather materializes one
-  x-window row per CHUNK, not per sublane — 8x less gather traffic, the
-  dominant non-compute cost in the v1 layout (on-chip decomposition: the
-  per-sublane gather was 61 us of a 162 us matvec at n=100k).
+  window (``wrow`` is per-chunk): the row gather materializes one x-window
+  row per CHUNK, not per sublane — 8x less gather traffic.
 - SpMV: gather the chunk windows (``xg = x2[wrow]``), broadcast each row
-  to its 8 sublanes in-kernel, lane-gather by the stored lane indices,
-  multiply by the values, and reduce sublane rows into their output groups.
-  No scalar gather anywhere.
+  to its 8 sublanes, lane-gather by the stored lane indices, multiply by
+  the values, and reduce sublane rows into their output groups. No scalar
+  gather anywhere.
 
 Layout (within each super-group of ``BG`` output groups): tiles — the
 (group, window) pairs with their per-row max entry count S — are sorted by
 (window, group) so same-window tiles are adjacent, each (super-group,
 window) RUN is padded to a multiple of 8 sublanes, and the super-group
-total to a multiple of the ``BS``-sublane stream block. The output
-reduction is one (BG, BS) one-hot matmul per block routing every sublane
-row to its output group row (exact: one-hot weights are 0/1, products
-accumulate in float32 with HIGHEST precision); consecutive blocks of one
-super-group accumulate into the same revisited output block.
+total to a multiple of the ``BS``-sublane stream block; ``gidl`` names each
+sublane row's output group inside its super-group.
 
-Streamed bytes per slot: 4 B value + 1 B lane index + 1 B of gathered
-window traffic (amortized over the chunk); fill (nnz / slots) depends on
-how well a 128-row group's entries cluster into shared windows —
-locality-preserving orderings (mesh order, RCM — see
-``tpucg.sparse.ordering``) keep it high. The measured compute floor is the
-Mosaic lane-gather itself (~17 VPU ops per slot), so fill bounds the
-achievable Gnnz/s; see benchmarks/well_bench.py and RESULTS.md.
+Stored bytes per slot: 4 B value + 1 B lane index, plus the gathered window
+amortized over the chunk; fill (nnz / slots) depends on how well a 128-row
+group's entries cluster into shared windows — locality-preserving
+orderings (mesh order, RCM — see ``tpucg.sparse.ordering``) keep it high.
 """
 
 from __future__ import annotations
@@ -115,7 +105,7 @@ class WellMatrix:
         An entry at (sublane s, lane l) has row = group(s)*128 + l and
         col = wrow[s//8]*128 + lidx[s, l]; the diagonal sums entries with
         col == row (padding slots hold value 0 and never contribute).
-        Host-side: the device scatter-add this needs is not TPU-compilable.
+        Host-side, once at construction.
         """
         BS, BG = self.block_sublanes, self.groups_per_super
         g_of_sub = (
@@ -156,19 +146,17 @@ def _auto_block_sublanes(total_sublanes: int, n_supergroups: int,
                          sg_tot=None) -> int:
     """Stream-block size heuristic, padding-aware (round 4).
 
-    Larger blocks amortize the one-hot output revisits (on-chip BS sweep,
-    n=1M geometric Laplacian: 2048 -> 4096 measured +20%/+29% Gnnz/s in
-    f32/bf16 at EQUAL padding), but each super-group pads to a BS
-    multiple, so the padding penalty depends on the per-super-group
+    Larger blocks were cheaper per slot for the stream kernel this layout
+    was tuned for (since removed; PERF.md), but each super-group pads to a
+    BS multiple, so the padding penalty depends on the per-super-group
     content MODULO BS, not its average: FEM n=1M sits just ABOVE 4096
     raw sublanes per super-group, so BS=4096 forced two blocks each
-    (fill 0.14) while BS=2048 packs three (fill 0.19) — measured 16.9 vs
-    22.6 Gnnz/s, a +34% lever the old average-content rule missed.
+    (fill 0.14) while BS=2048 packs three (fill 0.19).
 
     With ``sg_tot`` (the exact per-super-group chunk-padded sublane
     counts, available at pack time) the choice minimizes
     ``padded_slots(bs) * (4096/bs)**0.263`` over powers of two in
-    [256, 4096] — the exponent encodes the measured ~20% rate cost per
+    [256, 4096] — the exponent encodes that kernel's ~20% rate cost per
     block halving, so padding must shrink by more than that to justify a
     smaller block (ties go to the larger block). Without ``sg_tot`` the
     old average-content rule applies.
